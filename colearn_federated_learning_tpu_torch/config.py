@@ -1,0 +1,208 @@
+"""Experiment configuration for the PyTorch port.
+
+Typed dataclasses holding the fields the port's main path reads, with
+the same names and defaults as the JAX package's ``config.py``, so a
+``--set a.b=v`` override means the same thing in both. Unknown keys
+raise, as they do there. Named presets: ``mnist_fedavg_2`` (the CPU
+smoke) and ``cifar10_fedavg_100`` (the headline workload).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional
+
+DTYPE_NAMES = ("float32", "bfloat16")
+
+
+@dataclass
+class ModelConfig:
+    name: str = "lenet5"
+    num_classes: int = 10
+    # model-family extras (e.g. resnet18's ``width``)
+    kwargs: Dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass
+class DataConfig:
+    name: str = "mnist"
+    num_clients: int = 2
+    partition: str = "iid"  # iid | dirichlet
+    dirichlet_alpha: float = 0.5
+    data_dir: str = "~/.cache/colearn_data"
+    # real dataset files absent → deterministic synthetic stand-in of
+    # the same shapes and cardinality
+    synthetic_fallback: bool = True
+    synthetic_train_size: int = 2048
+    synthetic_test_size: int = 512
+    # x = w·class_template + (1−w)·noise
+    synthetic_template_weight: float = 0.7
+    # cap on examples a client contributes per round (0 = largest shard)
+    max_examples_per_client: int = 0
+
+
+@dataclass
+class ClientConfig:
+    """Local SGD with (β = ``momentum``) heavy-ball momentum."""
+
+    local_epochs: int = 1
+    batch_size: int = 32
+    lr: float = 0.1
+    momentum: float = 0.9
+
+
+@dataclass
+class ServerConfig:
+    num_rounds: int = 10
+    cohort_size: int = 2
+    eval_every: int = 1
+    checkpoint_every: int = 0  # 0 = only at end
+    # mean (plain FedAvg) | fedavgm (server momentum)
+    optimizer: str = "mean"
+    server_lr: float = 1.0
+    server_momentum: float = 0.9
+    # route the server apply through the hand-written CUDA kernel
+    # (ops/server_apply.py) instead of the plain optax-sgd chain
+    fused_apply: bool = False
+
+
+@dataclass
+class RunConfig:
+    seed: int = 0
+    out_dir: str = "runs"
+    # rounds between metric fetches (each fetch synchronizes the device)
+    metrics_flush_every: int = 10
+    compute_dtype: str = "float32"
+    # cast the f32 server params to this dtype once per client at local
+    # training entry ("" = train in f32)
+    local_param_dtype: str = ""
+
+
+@dataclass
+class ExperimentConfig:
+    """A FedAvg experiment (uniform cohort sampling, client SGD, f32
+    server params — the only algorithm, sampler, client optimizer and
+    server dtype the port has so far)."""
+
+    name: str = "mnist_fedavg_2"
+    model: ModelConfig = field(default_factory=ModelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    client: ClientConfig = field(default_factory=ClientConfig)
+    server: ServerConfig = field(default_factory=ServerConfig)
+    run: RunConfig = field(default_factory=RunConfig)
+
+    def validate(self) -> "ExperimentConfig":
+        """Reject what the port does not implement, naming the field."""
+        checks = (
+            (self.data.partition in ("iid", "dirichlet"), "data.partition",
+             ("iid", "dirichlet")),
+            (self.server.optimizer in ("mean", "fedavgm"),
+             "server.optimizer", ("mean", "fedavgm")),
+            (self.run.compute_dtype in DTYPE_NAMES, "run.compute_dtype",
+             DTYPE_NAMES),
+            (self.run.local_param_dtype in ("",) + DTYPE_NAMES,
+             "run.local_param_dtype", ("",) + DTYPE_NAMES),
+        )
+        for ok, path, allowed in checks:
+            if not ok:
+                value = eval_path(self, path)
+                raise ValueError(
+                    f"{path}={value!r} is not supported by the port; "
+                    f"allowed: {', '.join(map(repr, allowed))}"
+                )
+        if self.server.cohort_size > self.data.num_clients:
+            raise ValueError(
+                f"cohort_size {self.server.cohort_size} > num_clients "
+                f"{self.data.num_clients}"
+            )
+        if self.server.num_rounds < 1:
+            raise ValueError("server.num_rounds must be >= 1")
+        return self
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def apply_overrides(self, overrides: Dict[str, Any]) -> "ExperimentConfig":
+        """Apply dotted-path overrides like ``{'server.num_rounds': 5}``.
+        Paths may descend into dict-typed fields (``model.kwargs.width``);
+        an unknown section or leaf raises ``KeyError``."""
+        for dotted, value in overrides.items():
+            obj = self
+            *head, last = dotted.split(".")
+            for part in head:
+                if isinstance(obj, dict):
+                    obj = obj[part]
+                elif hasattr(obj, part):
+                    obj = getattr(obj, part)
+                else:
+                    raise KeyError(f"unknown config path {dotted!r}")
+            if isinstance(obj, dict):
+                obj[last] = value
+                continue
+            if not hasattr(obj, last):
+                raise KeyError(f"unknown config path {dotted!r}")
+            current = getattr(obj, last)
+            if current is not None and not isinstance(current, dict):
+                value = (type(current)(value)
+                         if not isinstance(value, type(current)) else value)
+            setattr(obj, last, value)
+        return self
+
+
+def eval_path(cfg: ExperimentConfig, dotted: str) -> Any:
+    obj: Any = cfg
+    for part in dotted.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def _mnist_fedavg_2() -> ExperimentConfig:
+    """FedAvg, 2 clients, LeNet-5 on MNIST (the CPU smoke)."""
+    return ExperimentConfig(
+        name="mnist_fedavg_2",
+        model=ModelConfig(name="lenet5", num_classes=10),
+        data=DataConfig(name="mnist", num_clients=2, partition="iid"),
+        client=ClientConfig(local_epochs=1, batch_size=32, lr=0.1),
+        server=ServerConfig(num_rounds=20, cohort_size=2),
+    )
+
+
+def _cifar10_fedavg_100() -> ExperimentConfig:
+    """FedAvg, 100 Dirichlet(0.5) clients, ResNet-18 (GroupNorm, CIFAR
+    stem) on CIFAR-10, cohort 16, bf16 compute and bf16 local params
+    over f32 server params — the headline workload."""
+    return ExperimentConfig(
+        name="cifar10_fedavg_100",
+        model=ModelConfig(name="resnet18", num_classes=10),
+        data=DataConfig(
+            name="cifar10",
+            num_clients=100,
+            partition="dirichlet",
+            dirichlet_alpha=0.5,
+            max_examples_per_client=512,
+        ),
+        client=ClientConfig(local_epochs=1, batch_size=64, lr=0.05),
+        server=ServerConfig(num_rounds=500, cohort_size=16, eval_every=10),
+        run=RunConfig(compute_dtype="bfloat16", local_param_dtype="bfloat16"),
+    )
+
+
+_NAMED = {
+    "mnist_fedavg_2": _mnist_fedavg_2,
+    "cifar10_fedavg_100": _cifar10_fedavg_100,
+}
+
+
+def resolve_config(name: str,
+                   overrides: Optional[Dict[str, Any]] = None
+                   ) -> ExperimentConfig:
+    """A named preset with dotted overrides applied, validated."""
+    if name not in _NAMED:
+        raise KeyError(
+            f"unknown config {name!r}; known named configs: {sorted(_NAMED)}"
+        )
+    cfg = _NAMED[name]()
+    if overrides:
+        cfg.apply_overrides(overrides)
+    return cfg.validate()

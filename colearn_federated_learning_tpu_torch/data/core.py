@@ -1,0 +1,169 @@
+"""Dataset registry and loaders (MNIST, CIFAR-10).
+
+Each loader first looks for real data files under ``data_dir``
+(keras-style ``mnist.npz``, the CIFAR-10 python pickles). When they are
+absent and ``synthetic_fallback`` is on, a deterministic, learnable
+synthetic stand-in of the same shapes, dtypes and class structure is
+generated instead; ``meta["source"]`` records which. The NumPy code is
+copied from the JAX package's ``data/core.py`` so that the same config
+and seed give bitwise-identical corpora in both packages.
+
+Images stay raw uint8 NHWC on the host; the driver moves the corpus to
+the device once per run and scales it there (client/trainer.py
+``normalize_input``).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import pickle
+from dataclasses import dataclass, field
+from typing import Any, Dict, List
+
+import numpy as np
+
+from colearn_federated_learning_tpu_torch.config import DataConfig
+from colearn_federated_learning_tpu_torch.data import partition as partition_lib
+from colearn_federated_learning_tpu_torch.utils.registry import Registry
+
+dataset_registry = Registry("dataset")
+
+
+@dataclass
+class FederatedData:
+    """A dataset plus its federated structure: flat example arrays and
+    one int array of example ids per client."""
+
+    train_x: np.ndarray
+    train_y: np.ndarray
+    test_x: np.ndarray
+    test_y: np.ndarray
+    client_indices: List[np.ndarray]
+    num_classes: int
+    task: str = "classify"
+    meta: Dict[str, Any] = field(default_factory=dict)
+
+    @property
+    def num_clients(self) -> int:
+        return len(self.client_indices)
+
+    def client_sizes(self) -> np.ndarray:
+        return np.array([len(ix) for ix in self.client_indices], np.int64)
+
+
+def _synthetic_images(rng: np.random.Generator, n: int, templates: np.ndarray,
+                      template_weight: float = 0.7):
+    """Class-template images + noise: x = w·template[y] + (1−w)·noise.
+    The same templates generate train and test, so the task is
+    learnable in a handful of rounds. Stored as raw uint8."""
+    num_classes, shape = templates.shape[0], templates.shape[1:]
+    w = float(template_weight)
+    y = rng.integers(0, num_classes, size=n).astype(np.int32)
+    noise = rng.uniform(0.0, 1.0, size=(n,) + tuple(shape)).astype(np.float32)
+    x = w * templates[y] + (1.0 - w) * noise
+    return np.clip(np.rint(x * 255.0), 0, 255).astype(np.uint8), y
+
+
+def _stable_seed(name: str) -> int:
+    # abs(hash()) is salted per-process; datasets must be reproducible
+    return int.from_bytes(name.encode(), "little") % (2**31)
+
+
+def _scaled_train_size(cfg: DataConfig) -> int:
+    """Synthetic corpora must be big enough to partition: ≥32 examples
+    per client on average."""
+    return max(cfg.synthetic_train_size, cfg.num_clients * 32)
+
+
+def _image_loader(name: str, shape, num_classes: int, real_fn):
+    def load(cfg: DataConfig):
+        shp = tuple(shape)
+        data_dir = os.path.expanduser(cfg.data_dir)
+        real = real_fn(data_dir)
+        if real is not None:
+            tx, ty, ex, ey = real
+            source = "real"
+            shp = tuple(tx.shape[1:])
+        elif cfg.synthetic_fallback:
+            rng = np.random.default_rng(_stable_seed(name))
+            n_train = _scaled_train_size(cfg)
+            templates = rng.uniform(
+                0.0, 1.0, size=(num_classes,) + shp
+            ).astype(np.float32)
+            w = cfg.synthetic_template_weight
+            tx, ty = _synthetic_images(rng, n_train, templates, w)
+            ex, ey = _synthetic_images(
+                rng, cfg.synthetic_test_size, templates, w
+            )
+            source = "synthetic"
+        else:
+            raise FileNotFoundError(
+                f"{name}: no data under {data_dir} and synthetic_fallback=False"
+            )
+        meta = {"source": source, "input_shape": shp}
+        return tx, ty, ex, ey, meta, num_classes, "classify"
+
+    return load
+
+
+def _try_mnist_real(data_dir: str):
+    path = os.path.join(data_dir, "mnist.npz")
+    if not os.path.exists(path):
+        return None
+    with np.load(path) as d:
+        tx = d["x_train"].astype(np.uint8)[..., None]
+        ex = d["x_test"].astype(np.uint8)[..., None]
+        return tx, d["y_train"].astype(np.int32), ex, d["y_test"].astype(np.int32)
+
+
+def _try_cifar10_real(data_dir: str):
+    base = os.path.join(data_dir, "cifar-10-batches-py")
+    if not os.path.isdir(base):
+        return None
+
+    def read(fname):
+        with open(os.path.join(base, fname), "rb") as f:
+            d = pickle.load(f, encoding="bytes")
+        x = d[b"data"].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+        return np.ascontiguousarray(x), np.array(d[b"labels"], np.int32)
+
+    xs, ys = zip(*[read(f"data_batch_{i}") for i in range(1, 6)])
+    tx, ty = np.concatenate(xs), np.concatenate(ys)
+    ex, ey = read("test_batch")
+    return tx, ty, ex, ey
+
+
+dataset_registry.register("mnist")(
+    _image_loader("mnist", (28, 28, 1), 10, _try_mnist_real))
+dataset_registry.register("cifar10")(
+    _image_loader("cifar10", (32, 32, 3), 10, _try_cifar10_real))
+
+
+def build_federated_data(cfg: DataConfig, seed: int = 0) -> FederatedData:
+    """Load a dataset and partition it into ``cfg.num_clients`` shards."""
+    loader = dataset_registry.get(cfg.name)
+    tx, ty, ex, ey, meta, num_classes, task = loader(cfg)
+    part_info: dict = {}
+    client_indices = partition_lib.partition(
+        cfg.partition,
+        labels=ty,
+        num_clients=cfg.num_clients,
+        num_classes=num_classes,
+        alpha=cfg.dirichlet_alpha,
+        seed=seed,
+        info=part_info,
+    )
+    meta = dict(meta, partition=cfg.partition, **part_info)
+    if part_info.get("repair_used"):
+        logging.getLogger(__name__).warning(
+            "%s partition (dirichlet alpha=%s) needed deterministic repair: "
+            "%d example(s) moved from the largest shards to starved ones",
+            cfg.partition, part_info.get("repair_alpha"),
+            part_info.get("repair_moved", 0),
+        )
+    return FederatedData(
+        train_x=tx, train_y=ty, test_x=ex, test_y=ey,
+        client_indices=client_indices, num_classes=num_classes, task=task,
+        meta=meta,
+    )

@@ -1,0 +1,49 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch
+versions, on the card. Every test here is marked ``cuda`` and skips
+without a CUDA device (a CUDA kernel has no CPU mode). The file imports
+no JAX, so on a machine without it the tests run with
+``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``."""
+
+import pytest
+import torch
+
+from colearn_federated_learning_tpu_torch.ops import server_apply
+from colearn_federated_learning_tpu_torch.ops.server_apply import (
+    delta_apply_reference,
+    fused_delta_apply,
+)
+
+torch.set_num_threads(1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [11_173_962, 1_000_003])
+@pytest.mark.parametrize("beta", [0.0, 0.9])
+def test_kernel_matches_plain_on_card(n, beta):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    p = torch.randn(n, device="cuda", generator=gen)
+    d = torch.randn(n, device="cuda", generator=gen) * 0.01
+    m = torch.randn(n, device="cuda", generator=gen) if beta else None
+    want_p, want_m = delta_apply_reference(p, d, 0.7, m, beta)
+    before = fused_delta_apply.launches
+    fused_delta_apply(p, d, 0.7, m, beta)
+    torch.cuda.synchronize()
+    assert fused_delta_apply.launches == before + 1
+    torch.testing.assert_close(p, want_p, atol=1e-6, rtol=1e-6)
+    if beta:
+        torch.testing.assert_close(m, want_m, atol=1e-6, rtol=1e-6)
+    assert server_apply.library_path().exists()
+
+
+@pytest.mark.cuda
+def test_kernel_wrapper_rejects_misaligned_buffers():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    p = torch.zeros(1025, device="cuda")
+    d = torch.zeros(1025, device="cuda")
+    before = fused_delta_apply.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_delta_apply(p[1:], d[1:], 1.0)
+    assert fused_delta_apply.launches == before
