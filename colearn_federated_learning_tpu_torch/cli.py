@@ -4,11 +4,12 @@
         --out-dir runs --set server.num_rounds=3 [--device cuda|cpu]
     python -m colearn_federated_learning_tpu_torch evaluate --config cifar10_fedavg_100 \\
         --out-dir runs [--device cuda|cpu]
+    python -m colearn_federated_learning_tpu_torch configs
 
 ``fit`` prints per-round JSONL and a final ``{"event": "done", ...}``
 line; ``evaluate`` prints the latest checkpoint's ``eval_loss`` and
-``eval_acc``. The named configs are ``mnist_fedavg_2`` and
-``cifar10_fedavg_100``.
+``eval_acc``; ``configs`` lists the named configs (``mnist_fedavg_2``,
+``cifar10_fedavg_100``, ``cifar10_krum_byzantine``).
 ``--set a.b=v`` overrides any config field (unknown keys are an error).
 The device defaults to CUDA; without a GPU the command fails unless
 ``--device cpu`` is given.
@@ -20,7 +21,10 @@ import argparse
 import json
 import sys
 
-from colearn_federated_learning_tpu_torch.config import resolve_config
+from colearn_federated_learning_tpu_torch.config import (
+    list_named_configs,
+    resolve_config,
+)
 
 
 def parse_overrides(pairs):
@@ -46,6 +50,7 @@ def parse_overrides(pairs):
 def build_parser():
     ap = argparse.ArgumentParser(prog="colearn_federated_learning_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
+    sub.add_parser("configs", help="list the named configs")
     for name, help_ in (("fit", "run federated training"),
                         ("evaluate", "evaluate the latest checkpoint")):
         p = sub.add_parser(name, help=help_)
@@ -61,6 +66,10 @@ def build_parser():
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.cmd == "configs":
+        for name in list_named_configs():
+            print(name)
+        return 0
     overrides = parse_overrides(args.overrides)
     if args.out_dir is not None:
         overrides["run.out_dir"] = args.out_dir

@@ -4,7 +4,9 @@ Typed dataclasses holding the fields the port's main path reads, with
 the same names and defaults as the JAX package's ``config.py``, so a
 ``--set a.b=v`` override means the same thing in both. Unknown keys
 raise, as they do there. Named presets: ``mnist_fedavg_2`` (the CPU
-smoke) and ``cifar10_fedavg_100`` (the headline workload).
+smoke), ``cifar10_fedavg_100`` (the headline workload) and
+``cifar10_krum_byzantine`` (the headline federation under a
+sign-flipping adversary, defended by Krum).
 """
 
 from __future__ import annotations
@@ -14,6 +16,10 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
 DTYPE_NAMES = ("float32", "bfloat16")
+AGGREGATORS = ("weighted_mean", "median", "trimmed_mean", "krum")
+# gauss draws its noise from jax.random's threefry, which torch's
+# generators cannot reproduce; the port leaves it out (see validate)
+ATTACK_KINDS = ("sign_flip", "scale", "alie", "label_flip")
 
 
 @dataclass
@@ -62,9 +68,39 @@ class ServerConfig:
     optimizer: str = "mean"
     server_lr: float = 1.0
     server_momentum: float = 0.9
-    # route the server apply through the hand-written CUDA kernel
-    # (ops/server_apply.py) instead of the plain optax-sgd chain
+    # route the server apply through the hand-written CUDA kernels
+    # (ops/server_apply.py; on the stacked path ops/reduce_apply.py)
+    # instead of the plain optax-sgd chain
     fused_apply: bool = False
+    # Cohort delta aggregation:
+    #   weighted_mean — FedAvg's example-weighted mean
+    #   median | trimmed_mean — coordinate-wise Byzantine-robust
+    #   statistics over the per-client deltas (unweighted by design)
+    #   krum — whole-update selection (Blanchard et al. 2017): keep the
+    #   one delta closest to its m−f−2 nearest neighbours
+    aggregator: str = "weighted_mean"
+    # fraction trimmed from EACH side per coordinate (trimmed_mean only)
+    trim_ratio: float = 0.1
+    # krum only: assumed number of Byzantine clients f (neighbour count
+    # = participants − f − 2, clamped ≥ 1)
+    krum_byzantine: int = 0
+
+
+@dataclass
+class AttackConfig:
+    """Byzantine adversary simulation (server/attacks.py). ``kind``:
+    "" (off) | sign_flip (upload −scale·Δ) | scale (upload scale·Δ) |
+    alie (upload μ − eps·σ of the honest cohort) | label_flip (train
+    on labels flipped y → (C−1)−y)."""
+
+    kind: str = ""
+    # fraction of the FEDERATION compromised: round(fraction·num_clients)
+    # clients (≥ 1), drawn once from run.seed
+    fraction: float = 0.25
+    # sign_flip/scale boost factor
+    scale: float = 10.0
+    # alie: the z of μ − z·σ
+    eps: float = 1.0
 
 
 @dataclass
@@ -83,13 +119,14 @@ class RunConfig:
 class ExperimentConfig:
     """A FedAvg experiment (uniform cohort sampling, client SGD, f32
     server params — the only algorithm, sampler, client optimizer and
-    server dtype the port has so far)."""
+    server dtype the port has so far), optionally under attack."""
 
     name: str = "mnist_fedavg_2"
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
     client: ClientConfig = field(default_factory=ClientConfig)
     server: ServerConfig = field(default_factory=ServerConfig)
+    attack: AttackConfig = field(default_factory=AttackConfig)
     run: RunConfig = field(default_factory=RunConfig)
 
     def validate(self) -> "ExperimentConfig":
@@ -99,6 +136,10 @@ class ExperimentConfig:
              ("iid", "dirichlet")),
             (self.server.optimizer in ("mean", "fedavgm"),
              "server.optimizer", ("mean", "fedavgm")),
+            (self.server.aggregator in AGGREGATORS, "server.aggregator",
+             AGGREGATORS),
+            (self.attack.kind in ("",) + ATTACK_KINDS, "attack.kind",
+             ("",) + ATTACK_KINDS),
             (self.run.compute_dtype in DTYPE_NAMES, "run.compute_dtype",
              DTYPE_NAMES),
             (self.run.local_param_dtype in ("",) + DTYPE_NAMES,
@@ -107,6 +148,11 @@ class ExperimentConfig:
         for ok, path, allowed in checks:
             if not ok:
                 value = eval_path(self, path)
+                if path == "attack.kind" and value == "gauss":
+                    raise ValueError(
+                        "attack.kind='gauss' is not supported by the port: "
+                        "its noise comes from jax.random's threefry "
+                        "streams, which torch cannot reproduce")
                 raise ValueError(
                     f"{path}={value!r} is not supported by the port; "
                     f"allowed: {', '.join(map(repr, allowed))}"
@@ -118,7 +164,38 @@ class ExperimentConfig:
             )
         if self.server.num_rounds < 1:
             raise ValueError("server.num_rounds must be >= 1")
+        self._validate_robust()
         return self
+
+    def _validate_robust(self) -> None:
+        """The JAX package's rules for the robust aggregators and the
+        attack knobs."""
+        srv, atk = self.server, self.attack
+        if srv.krum_byzantine < 0:
+            raise ValueError(f"server.krum_byzantine must be >= 0, "
+                             f"got {srv.krum_byzantine}")
+        if (srv.aggregator == "krum"
+                and 2 * srv.krum_byzantine + 2 >= srv.cohort_size):
+            # Blanchard et al.'s resilience condition 2f + 2 < n
+            raise ValueError(
+                f"server.krum_byzantine={srv.krum_byzantine}: krum requires "
+                f"2*krum_byzantine + 2 < cohort_size ({srv.cohort_size})")
+        if not 0.0 <= srv.trim_ratio < 0.5:
+            raise ValueError(f"server.trim_ratio must be in [0, 0.5), "
+                             f"got {srv.trim_ratio}")
+        if not atk.kind:
+            return
+        if not 0.0 < atk.fraction < 1.0:
+            raise ValueError(f"attack.fraction must be in (0, 1), "
+                             f"got {atk.fraction}")
+        if atk.scale <= 0.0:
+            raise ValueError(f"attack.scale must be > 0, got {atk.scale}")
+        if atk.eps < 0.0:
+            raise ValueError(f"attack.eps must be >= 0, got {atk.eps}")
+        if atk.kind == "label_flip" and self.model.num_classes < 2:
+            raise ValueError(
+                "attack.kind='label_flip' requires a classification label "
+                "space (model.num_classes >= 2)")
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -188,10 +265,30 @@ def _cifar10_fedavg_100() -> ExperimentConfig:
     )
 
 
+def _cifar10_krum_byzantine() -> ExperimentConfig:
+    """The headline CIFAR-10 federation under a live sign-flipping
+    adversary, defended by Krum: fraction 0.125 of 100 clients (≈ 12)
+    compromised, so ≈ 2 of the 16 cohort slots are Byzantine in steady
+    state, matching ``krum_byzantine=2`` within 2f + 2 < 16. The JAX
+    preset's ``run.cohort_layout="megabatch"`` is not a port option;
+    the sequential engine gives the same result."""
+    cfg = _cifar10_fedavg_100()
+    cfg.name = "cifar10_krum_byzantine"
+    cfg.server.aggregator = "krum"
+    cfg.server.krum_byzantine = 2
+    cfg.attack = AttackConfig(kind="sign_flip", fraction=0.125, scale=10.0)
+    return cfg
+
+
 _NAMED = {
     "mnist_fedavg_2": _mnist_fedavg_2,
     "cifar10_fedavg_100": _cifar10_fedavg_100,
+    "cifar10_krum_byzantine": _cifar10_krum_byzantine,
 }
+
+
+def list_named_configs():
+    return sorted(_NAMED)
 
 
 def resolve_config(name: str,

@@ -1,11 +1,11 @@
 """Where one round of the port's main path spends its time on the card.
 
     python -m colearn_federated_learning_tpu_torch.obs.profile \\
-        [--rounds 2] [--top 20] [--table PATH]
+        [--config cifar10_fedavg_100] [--rounds 2] [--top 20] [--table PATH]
 
-Builds ``cifar10_fedavg_100`` at full width on the CUDA card (synthetic
-CIFAR-10 at its real 50,000 / 1,000 cardinality, the fused server
-apply), runs one warm-up round, times ``--rounds`` rounds, then traces
+Builds ``--config`` (``cifar10_fedavg_100`` or ``cifar10_krum_byzantine``)
+at full width on the CUDA card (synthetic CIFAR-10 at its real 50,000 /
+1,000 cardinality, the fused server apply), runs one warm-up round, times ``--rounds`` rounds, then traces
 ``--rounds`` more with ``torch.profiler``. It prints JSON lines: the
 host wall time per round with and without the profiler; the summed
 device kernel time and the device's busy and idle shares (kernel time
@@ -39,6 +39,8 @@ def _device_us(event) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m colearn_federated_learning_tpu_torch.obs.profile")
+    ap.add_argument("--config", default="cifar10_fedavg_100",
+                    choices=("cifar10_fedavg_100", "cifar10_krum_byzantine"))
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--top", type=int, default=20)
     ap.add_argument("--table", default=None,
@@ -48,7 +50,7 @@ def main(argv=None) -> int:
         print("error: no CUDA device", file=sys.stderr)
         return 1
 
-    cfg = resolve_config("cifar10_fedavg_100", {
+    cfg = resolve_config(args.config, {
         "data.synthetic_train_size": 50000, "data.synthetic_test_size": 1000,
         "server.fused_apply": True, "run.out_dir": ""})
     exp = Experiment(cfg, device="cuda", echo=False)
@@ -75,7 +77,8 @@ def main(argv=None) -> int:
     device_s = sum(_device_us(e) for e in kernels) / 1e6 / args.rounds
     busy = device_s * args.rounds / wall
     print(json.dumps({
-        "rounds": args.rounds, "round_s": wall / args.rounds,
+        "config": args.config, "rounds": args.rounds,
+        "round_s": wall / args.rounds,
         "device_kernel_s_per_round": device_s,
         "device_busy_share": busy, "device_idle_share": 1.0 - busy,
         "round_s_unprofiled": plain_round_s,

@@ -17,26 +17,31 @@ port updates in place because the whole point of the pass is to move
 each parameter byte the fewest times.
 
 The kernel is built at first use with ``nvcc`` for ``sm_90a`` into the
-repository's ``build/`` directory and loaded with ``ctypes``.
+repository's ``build/`` directory and loaded with ``ctypes``
+(ops/_build.py).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "server_apply.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from colearn_federated_learning_tpu_torch.ops._build import CudaLibrary
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.colearn_delta_apply.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+    ]
+    lib.colearn_delta_apply.restype = ctypes.c_int
+
+
+LIBRARY = CudaLibrary("server_apply.cu", _bind)
+build = LIBRARY.build
+library_path = LIBRARY.path
 
 
 def delta_apply_reference(params: torch.Tensor, delta: torch.Tensor,
@@ -49,54 +54,6 @@ def delta_apply_reference(params: torch.Tensor, delta: torch.Tensor,
         return params + lr * delta, None
     m_new = beta * momentum - delta
     return params - lr * m_new, m_new
-
-
-def _find_nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
-                 "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       f"{SOURCE.name}")
-
-
-def library_path() -> Path:
-    digest = hashlib.sha1(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libcolearn_server_apply_{digest.hexdigest()[:12]}.so"
-
-
-def build() -> Path:
-    """Compile the kernel unless a build of this exact source exists.
-    The compiler's output (``-Xptxas -v``: registers, spills) is kept
-    beside the library as ``*.log``."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) on {SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
-    lib.colearn_delta_apply.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-    ]
-    lib.colearn_delta_apply.restype = ctypes.c_int
-    lib.colearn_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.colearn_cuda_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def _check(params, delta, momentum):
@@ -139,7 +96,7 @@ def fused_delta_apply(params: torch.Tensor, delta: torch.Tensor, lr: float,
         ptrs.append(momentum.data_ptr())
     if any(p % 16 for p in ptrs):
         raise ValueError("fused_delta_apply needs 16-byte-aligned buffers")
-    lib = _library()
+    lib = LIBRARY.load()
     with torch.cuda.device(params.device):
         stream = torch.cuda.current_stream(params.device).cuda_stream
         rc = lib.colearn_delta_apply(
@@ -147,11 +104,13 @@ def fused_delta_apply(params: torch.Tensor, delta: torch.Tensor, lr: float,
             None if momentum is None else momentum.data_ptr(),
             params.numel(), float(lr), float(beta), stream,
         )
-    if rc != 0:
-        msg = lib.colearn_cuda_error_string(rc).decode()
-        raise RuntimeError(f"colearn_delta_apply launch failed: {msg} ({rc})")
+    LIBRARY.check(rc, "colearn_delta_apply")
     fused_delta_apply.launches += 1
+    if momentum is not None:
+        fused_delta_apply.momentum_launches += 1
     return params, momentum
 
 
+# kernel launches, all and those of the momentum branch
 fused_delta_apply.launches = 0
+fused_delta_apply.momentum_launches = 0

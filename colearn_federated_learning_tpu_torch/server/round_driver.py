@@ -12,6 +12,13 @@ Host work per round is the NumPy cohort draw and index grid, pure in
 ``(seed, round)`` and identical to the JAX package's
 ``run.host_pipeline="numpy"`` path; the corpus and the eval batches
 move to the device once per run.
+
+Under ``attack.kind`` the compromised client set is drawn once from
+``run.seed`` (server/attacks.py); ``label_flip`` poisons their labels
+before the corpus is placed, and every round marks the cohort slots
+they hold. Each attacked round's record carries ``byzantine_count``,
+and under Krum ``krum_selected_byzantine`` (1 when the winner was a
+compromised slot).
 """
 
 from __future__ import annotations
@@ -38,6 +45,11 @@ from colearn_federated_learning_tpu_torch.parallel.round_engine import (
 )
 from colearn_federated_learning_tpu_torch.server.aggregation import (
     make_server_update_fn,
+)
+from colearn_federated_learning_tpu_torch.server.attacks import (
+    UPLOAD_ATTACKS,
+    flip_labels,
+    select_compromised,
 )
 from colearn_federated_learning_tpu_torch.server.sampler import CohortSampler
 from colearn_federated_learning_tpu_torch.utils.checkpoint import (
@@ -71,6 +83,22 @@ class Experiment:
         )
         self.layout = ParamLayout.from_params(dict(self.model.named_parameters()))
         self.fed = build_federated_data(cfg.data, seed=cfg.run.seed)
+        self.attack_kind = cfg.attack.kind
+        self.compromised = None
+        # round → the cohort's byzantine mask, until its record is logged
+        self._byz_masks: Dict[int, np.ndarray] = {}
+        if self.attack_kind:
+            self.compromised = select_compromised(
+                self.fed.num_clients, cfg.attack.fraction, cfg.run.seed)
+            if self.attack_kind == "label_flip":
+                if self.fed.task != "classify":
+                    raise ValueError("attack.kind='label_flip' requires a "
+                                     "classification task")
+                self.fed.train_y = flip_labels(
+                    self.fed.train_y, self.fed.client_indices,
+                    self.compromised, self.fed.num_classes)
+        upload_attack = (self.attack_kind
+                         if self.attack_kind in UPLOAD_ATTACKS else "")
         self.shape = compute_round_shape(self.fed, cfg.client, cfg.data)
         self.sampler = CohortSampler(
             self.fed.num_clients, cfg.server.cohort_size, seed=cfg.run.seed)
@@ -78,7 +106,11 @@ class Experiment:
         local_dtype = (DTYPES[cfg.run.local_param_dtype]
                        if cfg.run.local_param_dtype else None)
         self.round_fn = make_sequential_round_fn(
-            self.model, cfg.client, server_update, self.layout, local_dtype)
+            self.model, cfg.client, server_update, self.layout, local_dtype,
+            aggregator=cfg.server.aggregator,
+            trim_ratio=cfg.server.trim_ratio,
+            byzantine_f=cfg.server.krum_byzantine, attack=upload_attack,
+            attack_scale=cfg.attack.scale, attack_eps=cfg.attack.eps)
         self._eval_fn = make_eval_fn(self.model)
         dev = self.device
         self.train_x = torch.from_numpy(self.fed.train_x).to(dev)
@@ -124,10 +156,16 @@ class Experiment:
                   ) -> Dict[str, Any]:
         """One round. The params buffer is updated in place; the returned
         state carries the round's metrics under ``_metrics``."""
-        _, idx, mask, n_ex, step_counts = self._round_inputs(round_idx)
+        cohort, idx, mask, n_ex, step_counts = self._round_inputs(round_idx)
+        byz = None
+        if self.attack_kind:
+            # the cohort slots the adversary owns this round
+            byz = np.isin(np.asarray(cohort), self.compromised)
+            self._byz_masks[round_idx] = byz
+            byz = byz.astype(np.float32)
         opt_state, metrics = self.round_fn(
             state["params"], state["server_opt_state"], self.train_x,
-            self.train_y, idx, mask, n_ex, step_counts)
+            self.train_y, idx, mask, n_ex, step_counts, byz)
         return {"params": state["params"], "server_opt_state": opt_state,
                 "round": round_idx + 1, "_metrics": metrics}
 
@@ -148,6 +186,15 @@ class Experiment:
             "param_dtype": "float32",
             "device": str(self.device), "fused_apply": cfg.server.fused_apply,
         })
+        if self.attack_kind and int(state["round"]) == 0:
+            # attack provenance: kind, knobs and the compromised set
+            self.logger.log({
+                "event": "attack", "kind": self.attack_kind,
+                "fraction": cfg.attack.fraction, "scale": cfg.attack.scale,
+                "eps": cfg.attack.eps,
+                "n_compromised": int(len(self.compromised)),
+                "compromised": [int(c) for c in self.compromised],
+            })
         flush_every = max(1, cfg.run.metrics_flush_every)
         pending: List[Tuple[int, Any]] = []
         t_start = flush_t0 = time.perf_counter()
@@ -157,12 +204,21 @@ class Experiment:
             if not pending:
                 return
             losses = torch.stack([m.train_loss for _, m in pending]).cpu()
+            winners = [None if m.krum_winner is None else int(m.krum_winner)
+                       for _, m in pending]
             dt = time.perf_counter() - flush_t0
             rounds_per_sec = len(pending) / dt if dt > 0 else 0.0
             for j, (ridx, m) in enumerate(pending):
                 record = {"round": ridx + 1,
                           "train_loss": float(losses[j]),
                           "examples": float(m.examples)}
+                byz = self._byz_masks.pop(ridx, None)
+                if byz is not None:
+                    # compromised clients sampled into this round's cohort
+                    record["byzantine_count"] = int(byz.sum())
+                    if winners[j] is not None:
+                        record["krum_selected_byzantine"] = int(
+                            byz[winners[j]])
                 if ridx == pending[-1][0]:
                     record["rounds_per_sec"] = round(rounds_per_sec, 4)
                     record["client_updates_per_sec_per_chip"] = round(

@@ -36,6 +36,11 @@ class ParamLayout:
             off += t.numel()
         return cls(tuple(names), tuple(shapes), tuple(offsets), off)
 
+    def spans(self) -> Tuple[Tuple[int, int], ...]:
+        """``(start, end)`` of each parameter in the flat buffer."""
+        ends = self.offsets[1:] + (self.numel,)
+        return tuple(zip(self.offsets, ends))
+
     def views(self, flat: torch.Tensor) -> Params:
         """Per-parameter views into ``flat`` (writes go through)."""
         if flat.shape != (self.numel,):

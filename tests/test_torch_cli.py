@@ -88,6 +88,12 @@ def test_profile_needs_a_gpu(monkeypatch, capsys):
     assert "no CUDA device" in capsys.readouterr().err
 
 
+def test_configs_lists_the_named_configs(capsys):
+    assert cli.main(["configs"]) == 0
+    assert capsys.readouterr().out.split() == [
+        "cifar10_fedavg_100", "cifar10_krum_byzantine", "mnist_fedavg_2"]
+
+
 def test_evaluate_without_checkpoint_exits_2(tmp_path, capsys):
     rc = cli.main(["evaluate", "--config", "mnist_fedavg_2", "--out-dir",
                    str(tmp_path), "--device", "cpu"] + _TINY)
@@ -104,7 +110,8 @@ def _leaf_fields(dc, prefix=""):
             yield prefix + f.name, value
 
 
-@pytest.mark.parametrize("name", ["mnist_fedavg_2", "cifar10_fedavg_100"])
+@pytest.mark.parametrize("name", ["mnist_fedavg_2", "cifar10_fedavg_100",
+                                  "cifar10_krum_byzantine"])
 def test_presets_match_the_jax_package(name):
     """Every field the port keeps has the JAX preset's value."""
     port = tcfg.resolve_config(name)

@@ -44,11 +44,12 @@ def test_port_has_the_expected_layout():
                 "models/lenet.py", "models/convert.py", "client/trainer.py",
                 "server/aggregation.py", "server/sampler.py",
                 "server/round_driver.py", "parallel/round_engine.py",
-                "ops/server_apply.py", "utils/metrics.py",
+                "ops/server_apply.py", "ops/reduce_apply.py",
+                "server/attacks.py", "utils/metrics.py",
                 "utils/checkpoint.py", "obs/profile.py"):
         assert rel in files, rel
-    assert os.path.isfile(os.path.join(_PORT, "ops", "csrc",
-                                       "server_apply.cu"))
+    for cu in ("server_apply.cu", "reduce_apply.cu"):
+        assert os.path.isfile(os.path.join(_PORT, "ops", "csrc", cu))
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -7,7 +7,12 @@ no JAX, so on a machine without it the tests run with
 import pytest
 import torch
 
-from colearn_federated_learning_tpu_torch.ops import server_apply
+from colearn_federated_learning_tpu_torch.ops import reduce_apply, server_apply
+from colearn_federated_learning_tpu_torch.ops.reduce_apply import (
+    fused_reduce_apply,
+    new_stack,
+    reduce_apply_reference,
+)
 from colearn_federated_learning_tpu_torch.ops.server_apply import (
     delta_apply_reference,
     fused_delta_apply,
@@ -47,3 +52,49 @@ def test_kernel_wrapper_rejects_misaligned_buffers():
     with pytest.raises(ValueError, match="16-byte"):
         fused_delta_apply(p[1:], d[1:], 1.0)
     assert fused_delta_apply.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [11_173_962, 1_000_003])
+@pytest.mark.parametrize("beta", [0.0, 0.9])
+def test_reduce_apply_kernel_matches_plain_on_card(n, beta):
+    """Random weights, a one-hot row and an all-zero row, K = 16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    k = 16
+    gen = torch.Generator(device="cuda").manual_seed(n + 1)
+    stack = new_stack(k, n, "cuda")
+    stack.copy_(torch.randn(k, n, device="cuda", generator=gen) * 0.01)
+    rows = {"random": torch.rand(k, device="cuda", generator=gen) / k,
+            "one_hot": torch.eye(k, device="cuda")[5],
+            "zero": torch.zeros(k, device="cuda")}
+    for w in rows.values():
+        p = torch.randn(n, device="cuda", generator=gen)
+        m = torch.randn(n, device="cuda", generator=gen) if beta else None
+        want_p, want_m, want_d = reduce_apply_reference(stack, w, p, 0.7, m,
+                                                        beta)
+        before = fused_reduce_apply.launches
+        _, _, d = fused_reduce_apply(stack, w, p, 0.7, m, beta)
+        torch.cuda.synchronize()
+        assert fused_reduce_apply.launches == before + 1
+        torch.testing.assert_close(d, want_d, atol=1e-6, rtol=1e-6)
+        torch.testing.assert_close(p, want_p, atol=1e-6, rtol=1e-6)
+        if beta:
+            torch.testing.assert_close(m, want_m, atol=1e-6, rtol=1e-6)
+    assert not d.any()  # the last row, all zero, gives the zero aggregate
+    assert reduce_apply.LIBRARY.path().exists()
+
+
+@pytest.mark.cuda
+def test_reduce_apply_rejects_a_dense_stack_of_odd_rows():
+    """A dense [K, N] stack with N % 4 != 0 puts odd rows 8 bytes off a
+    16-byte boundary: the wrapper refuses it rather than launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    n = 1_000_002
+    p = torch.zeros(n, device="cuda")
+    before = fused_reduce_apply.launches
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fused_reduce_apply(torch.zeros(3, n, device="cuda"),
+                           torch.ones(3, device="cuda"), p, 1.0)
+    assert fused_reduce_apply.launches == before
