@@ -9,7 +9,7 @@ csrc`` at first use, one ``nvcc`` per source, all at once). Phases, each
 of which fails the run:
 
 1. build the hand-written CUDA kernels (``fused_delta_apply``,
-   ``fused_reduce_apply``);
+   ``fused_reduce_apply``, ``flash_attention``);
 2. hold ``fused_delta_apply`` against its plain PyTorch version on
    random f32 vectors of the ResNet-18 length and of an odd length, both
    branches (no momentum / momentum), within 1e-6 absolute + 1e-6
@@ -17,24 +17,47 @@ of which fails the run:
 3. hold ``fused_reduce_apply`` against its plain version on a K = 16
    stack at the same lengths, both branches, with random weights, a
    one-hot row and an all-zero row, within the same tolerance;
-4. time each kernel, its plain version and the library calls that
+4. hold ``flash_attention`` against its plain version, causal and not,
+   at (B·H, T, hd) = (32, 80, 64) (the BERT-tiny path's shape), at ViT's
+   ragged T = 197 (hd 64) and at T = 50 and 48 with hd 16 and 128, in
+   f32 within 2e-5 abs + 2e-5 rel and in bf16 within one bf16 ulp of the
+   plain output plus 2e-5 (both compute in f32 and round once; the 2e-5
+   covers outputs near zero, where the f32 sums cancel and the two
+   orders of summation differ by more than a bf16 ulp); and one backward
+   through its ``autograd.Function`` against autograd of the plain
+   causal attention, f32, within 2e-5;
+5. time each kernel, its plain version and the library calls that
    compute the same (or part of the same) function, beside the card's
-   bound for the bytes the pass must move;
-5. drive the first path — ``fit`` of ``cifar10_fedavg_100`` (ResNet-18
+   bound for the bytes the pass must move and the operations it does
+   (``flash_attention``: bf16, causal, at the path's shape, beside
+   ``scaled_dot_product_attention(..., is_causal=True)``, each as device
+   time with the host held off by a sleep kernel, since at this size a
+   call costs the host more than the card);
+6. drive the first path — ``fit`` of ``cifar10_fedavg_100`` (ResNet-18
    at full width, synthetic CIFAR-10 at its real 50,000 / 1,000
    cardinality, cohort 16, bf16 local training, the fused server apply)
    for 3 rounds — and check finite losses, params that moved, one
    ``fused_delta_apply`` launch per round; ``evaluate`` the checkpoint
    through the CLI in a fresh process and require the final
    ``eval_loss`` bit for bit;
-6. drive the second path — ``fit`` of ``cifar10_krum_byzantine`` (the
+7. drive the second path — ``fit`` of ``cifar10_krum_byzantine`` (the
    same federation under a sign-flipping adversary, defended by Krum,
    with the fused apply) for 3 rounds — and check finite losses, params
    that moved, one ``fused_reduce_apply`` launch per round and none of
    ``fused_delta_apply``, and ``byzantine_count`` in every round's
    record; then, on one round's stack, the fused route (Krum's one-hot
    row through the kernel) and the unfused route (``robust_reduce`` +
-   the plain apply) must agree within 1e-6.
+   the plain apply) must agree within 1e-6;
+8. drive the third path — ``fit`` of ``shakespeare_fedavg`` (BERT-tiny
+   at its published geometry, 128 natural clients of the synthetic
+   Markov-chain corpus, cohort 32, bf16 local training) with
+   ``model.kwargs.attention=pallas`` for 3 rounds, evaluating after the
+   third — and check finite losses, params that moved, a
+   ``flash_attention`` launch for each layer of every local step run
+   and every eval batch (counted from the round's masks and eval's
+   batches), and no launch of the two apply kernels; it also prints the
+   first round's train loss under ``attention=full`` from the same
+   init, beside the ``pallas`` one (not gated).
 
 Each path is driven with every launch count set to 0 just before it and
 read just after. The lines before the last report the card
@@ -62,11 +85,18 @@ K_COHORT = 16  # the cohort of both configs
 ATOL = RTOL = 1e-6
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 ROUNDS = 3
 DATA_SETS = ("data.synthetic_train_size=50000",
              "data.synthetic_test_size=1000")
 PALLAS = "colearn_federated_learning_tpu/ops/pallas_apply.py"
+PALLAS_ATTENTION = "colearn_federated_learning_tpu/ops/pallas_attention.py"
 CSRC = "colearn_federated_learning_tpu_torch/ops/csrc/"
+# flash_attention's checks: (B·H, T, hd); the first is the path's shape
+ATTN_SHAPES = ((32, 80, 64), (4, 197, 64), (6, 50, 16), (6, 48, 16),
+               (3, 50, 128), (3, 48, 128))
+ATTN_ATOL = ATTN_RTOL = 2e-5
+BERT_HEADS = 2
 
 
 def emit(obj) -> None:
@@ -104,12 +134,51 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: int, flops: int) -> dict:
+def device_ms(fn, iters: int = 100, warmup: int = 10,
+              sleep_cycles: int = 400_000_000, tries: int = 3) -> dict:
+    """Device time of ``fn`` when the host is out of the way: a sleep
+    kernel holds the stream while the host enqueues ``iters`` calls, and
+    CUDA events around the calls time only their execution (for launches
+    that cost the host more than the device). A sleep that ends before
+    the enqueue does would let host time in, so it is retried four
+    times longer, and after ``tries`` such runs this raises (as it must
+    when ``iters`` calls hold more launches than the device queues:
+    the host then waits for the sleeping card).
+    ``back_to_back_ms`` is the plain event timing of :func:`time_ms`,
+    host time included."""
+    import torch
+
+    back_to_back = time_ms(fn, iters, warmup)
+    sleep_start = torch.cuda.Event(enable_timing=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        sleep_start.record()
+        torch.cuda._sleep(sleep_cycles)  # 400M cycles: ~0.2 s of clock
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if sleep_start.elapsed_time(start) > enqueue_ms:
+            return {"ms": start.elapsed_time(end) / iters,
+                    "back_to_back_ms": back_to_back}
+        sleep_cycles *= 4
+    raise RuntimeError(f"device_ms: the sleep did not outlast the host's "
+                       f"enqueue of {iters} calls in {tries} tries")
+
+
+def bound_ms(nbytes: int, flops: int,
+             flops_per_s: float = F32_FLOPS_PER_S) -> dict:
     """Least time for a pass on this card: ``nbytes`` moved (each input
     read once, each output written once) against the memory rate, and
-    ``flops`` against the f32 peak; the larger bounds it."""
+    ``flops`` against the peak for their type (f32 by default); the
+    larger bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops}
@@ -127,7 +196,26 @@ def reduce_bound(k: int, n: int, momentum: bool) -> dict:
                     (2 * k + (4 if momentum else 2)) * n)
 
 
-def assert_close(pairs, what: str) -> float:
+def attention_bound(bh: int, t: int, hd: int, elem_bytes: int,
+                    causal: bool) -> dict:
+    """q, k, v read and o written once; the two products over the
+    (query, key) pairs the mask keeps, at the bf16 tensor-core peak."""
+    pairs = t * (t + 1) // 2 if causal else t * t
+    return bound_ms(4 * bh * t * hd * elem_bytes, 2 * 2 * bh * pairs * hd,
+                    BF16_FLOPS_PER_S)
+
+
+def bf16_ulp(x):
+    """One bf16 ulp at each element of ``x``, exact: the power of two of
+    x's exponent field, times 2⁻⁷."""
+    import torch
+
+    mag = x.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return (mag.view(torch.int32) & 0x7F800000).view(torch.float32) * 2.0**-7
+
+
+def assert_close(pairs, what: str, atol: float = ATOL,
+                 rtol: float = RTOL) -> float:
     """Max abs error over ``(got, want)`` pairs; raises past the
     tolerance."""
     import torch
@@ -135,7 +223,7 @@ def assert_close(pairs, what: str) -> float:
     err = 0.0
     for got, want in pairs:
         err = max(err, float((got - want).abs().max()))
-        if not torch.allclose(got, want, atol=ATOL, rtol=RTOL):
+        if not torch.allclose(got, want, atol=atol, rtol=rtol):
             raise AssertionError(
                 f"{what}: disagrees with its plain version, max abs err "
                 f"{err}")
@@ -298,15 +386,116 @@ def reduce_kernel_phase(reduce_apply) -> dict:
     return rows
 
 
+def flash_kernel_phase(fa) -> dict:
+    """``flash_attention`` against its plain version at ATTN_SHAPES, both
+    masks, f32 and bf16; one backward; then its timing at the path's
+    shape."""
+    import torch
+
+    from colearn_federated_learning_tpu_torch.ops.attention import (
+        causal_attention,
+    )
+
+    errs, ulp_ratio = {}, 0.0
+    for shape in ATTN_SHAPES:
+        for causal in (True, False):
+            for dtype in (torch.float32, torch.bfloat16):
+                gen = torch.Generator(device="cuda").manual_seed(
+                    sum(shape) + causal)
+                q, k, v = (torch.randn(shape, device="cuda",
+                                       generator=gen).to(dtype)
+                           for _ in range(3))
+                want = fa.attention_reference(q, k, v, causal)
+                got = fa.attention_forward(q, k, v, causal)
+                torch.cuda.synchronize()
+                what = (f"flash_attention {shape} causal={causal} "
+                        f"{str(dtype)[6:]}")
+                err = (got.float() - want.float()).abs()
+                if dtype == torch.float32:
+                    ok = bool((err <= ATTN_ATOL
+                               + ATTN_RTOL * want.abs()).all())
+                else:
+                    # one bf16 ulp, plus the f32 tolerance's absolute term
+                    # for outputs near zero, whose f32 sums cancel
+                    ratio = float((err / (bf16_ulp(want) + ATTN_ATOL)).max())
+                    ulp_ratio = max(ulp_ratio, ratio)
+                    ok = ratio <= 1.0
+                if not ok or got.shape != q.shape or got.dtype != dtype:
+                    raise AssertionError(
+                        f"{what}: disagrees with its plain version, max abs "
+                        f"err {float(err.max())}")
+                errs[what] = float(err.max())
+
+    # the backward: the kernel's forward, the recomputed gradient
+    b, t, d = 16, 80, 128
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v, g = (torch.randn(b, t, d, device="cuda", generator=gen)
+                  for _ in range(4))
+    got = torch.autograd.grad(
+        fa.flash_attention(*(x.requires_grad_() for x in (q, k, v)),
+                           BERT_HEADS), (q, k, v), g)
+    want = torch.autograd.grad(causal_attention(q, k, v, BERT_HEADS),
+                               (q, k, v), g)
+    grad_err = assert_close(list(zip(got, want)), "flash_attention grads",
+                            ATTN_ATOL, ATTN_RTOL)
+    f32_err = max(e for w, e in errs.items() if w.endswith("float32"))
+    bf16_err = max(e for w, e in errs.items() if w.endswith("bfloat16"))
+    emit({"phase": "flash_kernel_vs_plain", "atol_f32": ATTN_ATOL,
+          "rtol_f32": ATTN_RTOL, "bf16_tolerance": "1 bf16 ulp + 2e-5",
+          "max_abs_err": errs, "bf16_max_err_over_tolerance": ulp_ratio,
+          "grad_max_abs_err": grad_err})
+
+    bh, t, hd = ATTN_SHAPES[0]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v = (torch.randn(bh, t, hd, device="cuda", generator=gen)
+               .to(torch.bfloat16) for _ in range(3))
+    # scaled_dot_product_attention on the same tensors as [B, H, T, hd]
+    q4, k4, v4 = (x.view(bh // BERT_HEADS, BERT_HEADS, t, hd)
+                  for x in (q, k, v))
+    one = torch.zeros(1, device="cuda")
+    # device times with the host out of the way (device_ms): at this
+    # size one call costs the host more than the card
+    kernel = device_ms(lambda: fa.attention_forward(q, k, v, True))
+    # the plain version launches ~30 kernels a call: 20 calls stay below
+    # the device's queue of pending launches, past which the host waits
+    # for the sleeping card and the enqueue can never be hidden
+    plain = device_ms(lambda: fa.attention_reference(q, k, v, True),
+                      iters=20)
+    library = device_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True))
+    floor = device_ms(lambda: one.add_(1.0))
+    row = {
+        "max_abs_err": max(f32_err, bf16_err, grad_err),
+        "max_abs_err_f32": f32_err, "max_abs_err_bf16": bf16_err,
+        "ms": kernel["ms"], "plain_ms": plain["ms"],
+        "library_ms": library["ms"],
+        "library_call": "torch.nn.functional.scaled_dot_product_attention"
+                        "(q, k, v, is_causal=True) on [16, 2, 80, 64] bf16",
+        "back_to_back_ms": {"kernel": kernel["back_to_back_ms"],
+                            "plain": plain["back_to_back_ms"],
+                            "library": library["back_to_back_ms"]},
+        # a one-element kernel: what any launch costs on this card
+        "launch_floor_ms": floor["ms"],
+        "launch_floor_back_to_back_ms": floor["back_to_back_ms"],
+        **attention_bound(bh, t, hd, 2, causal=True),
+    }
+    emit({"phase": "flash_kernel_timing", "shape": [bh, t, hd],
+          "dtype": "bfloat16", "causal": True, **row})
+    return row
+
+
 def reset_counts(kernels) -> None:
     for fn in kernels:
         fn.launches = 0
-        fn.momentum_launches = 0
+        if hasattr(fn, "momentum_launches"):
+            fn.momentum_launches = 0
 
 
 def read_counts(kernels) -> dict:
     return {fn.__name__: {"launches": fn.launches,
-                          "momentum_launches": fn.momentum_launches}
+                          "momentum_launches": getattr(
+                              fn, "momentum_launches", 0)}
             for fn in kernels}
 
 
@@ -381,9 +570,10 @@ def fedavg_path_phase(kernels) -> dict:
     if counts["fused_delta_apply"]["launches"] != ROUNDS:
         raise AssertionError(f"fused_delta_apply launched {counts} in "
                              f"{ROUNDS} rounds")
-    if counts["fused_reduce_apply"]["launches"] != 0:
-        raise AssertionError(f"the FedAvg path reached the reduce kernel: "
-                             f"{counts}")
+    if (counts["fused_reduce_apply"]["launches"]
+            or counts["flash_attention"]["launches"]):
+        raise AssertionError(f"the FedAvg path reached the reduce or the "
+                             f"attention kernel: {counts}")
     state = run["state"]
     final = exp.evaluate(state["params"])
     if not math.isfinite(final["eval_loss"]):
@@ -432,10 +622,11 @@ def krum_path_phase(kernels, reduce_apply, server_apply) -> dict:
     run = fit_and_check(exp, kernels)
     counts = run["counts"]
     if (counts["fused_reduce_apply"]["launches"] != ROUNDS
-            or counts["fused_delta_apply"]["launches"] != 0):
+            or counts["fused_delta_apply"]["launches"]
+            or counts["flash_attention"]["launches"]):
         raise AssertionError(f"the Krum path launched {counts} in {ROUNDS} "
                              f"rounds (want one fused_reduce_apply a round "
-                             f"and no fused_delta_apply)")
+                             f"and no other kernel)")
     records = run["records"]
     if any("byzantine_count" not in r for r in records):
         raise AssertionError(f"byzantine_count missing from {records}")
@@ -485,36 +676,93 @@ def krum_path_phase(kernels, reduce_apply, server_apply) -> dict:
     return counts
 
 
-def kernel_rows(delta, reduce, fedavg_counts, krum_counts) -> list:
-    """The four rows of the kernel table; each branch's launches come
-    from the path that runs it."""
+def shakespeare_path_phase(kernels) -> dict:
+    import torch
+
+    sets = (f"server.num_rounds={ROUNDS}", f"server.eval_every={ROUNDS}",
+            "model.kwargs.attention=pallas")
+    exp, setup_s = make_experiment("shakespeare_fedavg", sets, "")
+    run = fit_and_check(exp, kernels)
+    counts = run["counts"]
+    # one launch per layer for every local step run (a step whose mask is
+    # all zero is skipped) and for every eval batch (eval after round 3)
+    steps_run = sum(int((exp._round_inputs(r)[4] > 0).sum())
+                    for r in range(ROUNDS))
+    eval_batches = int(exp._eval_data[0].shape[0])
+    layers = exp.model.layers
+    want = layers * (steps_run + eval_batches)
+    if (counts["flash_attention"]["launches"] != want
+            or counts["fused_delta_apply"]["launches"]
+            or counts["fused_reduce_apply"]["launches"]):
+        raise AssertionError(
+            f"the shakespeare path launched {counts}; want {want} "
+            f"flash_attention launches ({layers} layers x ({steps_run} local "
+            f"steps + {eval_batches} eval batches)) and no other kernel")
+    final = run["records"][-1]
+    if not math.isfinite(final.get("eval_loss", math.nan)):
+        raise AssertionError(f"eval loss not finite: {final}")
+    state = run["state"]
+    round_s = steady_round_s(exp, state)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cohort = exp.cfg.server.cohort_size
+    del exp, state
+
+    # the first round under full attention from the same init (not gated)
+    full, _ = make_experiment("shakespeare_fedavg", (
+        f"server.num_rounds={ROUNDS}", "model.kwargs.attention=full"), "")
+    first = full.run_round(full.init_state(), 0)
+    full_loss = float(first["_metrics"].train_loss)
+    emit({"phase": "shakespeare_path", "config": "shakespeare_fedavg",
+          "attention": "pallas", "rounds": ROUNDS, "launches": counts,
+          "flash_launches_expected": want, "local_steps_run": steps_run,
+          "eval_batches": eval_batches, "train_loss": run["losses"],
+          "eval_loss": final["eval_loss"], "eval_acc": final["eval_acc"],
+          "first_round_train_loss_full_attention": full_loss,
+          "setup_s": round(setup_s, 3), "fit_s": round(run["fit_s"], 3),
+          "steady_round_s": round(round_s, 4),
+          "rounds_per_sec": round(1.0 / round_s, 4),
+          "client_updates_per_sec": round(cohort / round_s, 4),
+          "peak_mem_gb": round(peak_gb, 3)})
+    return counts
+
+
+def kernel_rows(delta, reduce, flash, counts_by_path) -> list:
+    """The five rows of the kernel table. ``launches`` is each branch's
+    count on the path that runs it; ``launches_by_path`` gives it on
+    every path."""
     def launches(counts, name, momentum):
         c = counts[name]
         return (c["momentum_launches"] if momentum
                 else c["launches"] - c["momentum_launches"])
 
-    def row(name, source, replaces, timing, n_launches):
+    def row(name, source, replaces, timing, fn_name, momentum, path):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
+        by_path = {p: launches(c, fn_name, momentum)
+                   for p, c in counts_by_path.items()}
         out = {"name": name, "route": "cuda", "source": CSRC + source,
-               "replaces": f"{PALLAS}:{replaces}", "launches": n_launches}
+               "replaces": replaces,
+               "launches": (by_path[path] if path
+                            else sum(by_path.values())),
+               "launches_by_path": by_path}
         out.update({k: timing[k] for k in keys})
         if "library_call" in timing:
             out["library_call"] = timing["library_call"]
         return out
 
-    both = {name: {k: fedavg_counts[name][k] + krum_counts[name][k]
-                   for k in fedavg_counts[name]}
-            for name in fedavg_counts}  # launches of both paths
     return [
-        row("fused_delta_apply", "server_apply.cu", 222, delta[False],
-            launches(fedavg_counts, "fused_delta_apply", False)),
-        row("fused_delta_apply (momentum)", "server_apply.cu", 209,
-            delta[True], launches(both, "fused_delta_apply", True)),
-        row("fused_reduce_apply (momentum)", "reduce_apply.cu", 262,
-            reduce[True], launches(both, "fused_reduce_apply", True)),
-        row("fused_reduce_apply", "reduce_apply.cu", 275, reduce[False],
-            launches(krum_counts, "fused_reduce_apply", False)),
+        row("fused_delta_apply", "server_apply.cu", f"{PALLAS}:222",
+            delta[False], "fused_delta_apply", False, "cifar10_fedavg_100"),
+        row("fused_delta_apply (momentum)", "server_apply.cu",
+            f"{PALLAS}:209", delta[True], "fused_delta_apply", True, None),
+        row("fused_reduce_apply (momentum)", "reduce_apply.cu",
+            f"{PALLAS}:262", reduce[True], "fused_reduce_apply", True, None),
+        row("fused_reduce_apply", "reduce_apply.cu", f"{PALLAS}:275",
+            reduce[False], "fused_reduce_apply", False,
+            "cifar10_krum_byzantine"),
+        row("flash_attention", "flash_attention.cu",
+            f"{PALLAS_ATTENTION}:141", flash, "flash_attention", False,
+            "shakespeare_fedavg"),
     ]
 
 
@@ -530,6 +778,7 @@ def main() -> int:
         return 1
     try:
         from colearn_federated_learning_tpu_torch.ops import (
+            flash_attention,
             reduce_apply,
             server_apply,
         )
@@ -542,20 +791,27 @@ def main() -> int:
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda})
     kernels = (server_apply.fused_delta_apply,
-               reduce_apply.fused_reduce_apply)
+               reduce_apply.fused_reduce_apply,
+               flash_attention.flash_attention)
     try:
-        build_phase([server_apply.LIBRARY, reduce_apply.LIBRARY])
+        build_phase([server_apply.LIBRARY, reduce_apply.LIBRARY,
+                     flash_attention.LIBRARY])
         delta = delta_kernel_phase(server_apply)
         reduce = reduce_kernel_phase(reduce_apply)
-        fedavg_counts = fedavg_path_phase(kernels)
-        krum_counts = krum_path_phase(kernels, reduce_apply, server_apply)
+        flash = flash_kernel_phase(flash_attention)
+        counts = {
+            "cifar10_fedavg_100": fedavg_path_phase(kernels),
+            "cifar10_krum_byzantine": krum_path_phase(kernels, reduce_apply,
+                                                      server_apply),
+            "shakespeare_fedavg": shakespeare_path_phase(kernels),
+        }
     except Exception as e:  # every phase failure ends the run non-zero
         import traceback
 
         traceback.print_exc()
         print(f"error: chip smoke failed: {e}", file=sys.stderr)
         return 1
-    emit({"kernels": kernel_rows(delta, reduce, fedavg_counts, krum_counts)})
+    emit({"kernels": kernel_rows(delta, reduce, flash, counts)})
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 3)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -9,7 +9,8 @@
 ``fit`` prints per-round JSONL and a final ``{"event": "done", ...}``
 line; ``evaluate`` prints the latest checkpoint's ``eval_loss`` and
 ``eval_acc``; ``configs`` lists the named configs (``mnist_fedavg_2``,
-``cifar10_fedavg_100``, ``cifar10_krum_byzantine``).
+``cifar10_fedavg_100``, ``cifar10_krum_byzantine``,
+``shakespeare_fedavg``).
 ``--set a.b=v`` overrides any config field (unknown keys are an error).
 The device defaults to CUDA; without a GPU the command fails unless
 ``--device cpu`` is given.

@@ -14,6 +14,10 @@ Semantics follow the JAX package's fused scalar-gated SGD step
 is an exact no-op there (``lr_eff = β_eff − 1 = 0``); here the host
 knows the mask, so the step is not run at all, which leaves params
 and momentum bitwise unchanged in the same way.
+
+Tasks: ``classify`` (``y`` ``[B]``) and ``lm`` (``y`` ``[B, T]`` next
+tokens: per-token cross-entropy and accuracy, each a mean over T, then
+the masked mean over the batch).
 """
 
 from __future__ import annotations
@@ -37,21 +41,30 @@ class LocalMetrics(NamedTuple):
 def normalize_input(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """uint8 images are stored raw; scale to [0, 1] in ``dtype`` as
     ``x.astype(dtype) * dtype(1/255)`` (uint8 values are exact in bf16,
-    so the only rounding is the product's). Other inputs pass through."""
+    so the only rounding is the product's). Other inputs, such as an LM's
+    integer tokens, pass through."""
     if x.dtype == torch.uint8:
         return x.to(dtype) * torch.tensor(1.0 / 255.0, dtype=dtype,
                                           device=x.device)
     return x
 
 
-def make_loss_fn(model):
+def _cross_entropy(logits, y, task: str):
+    """Per-example softmax cross-entropy of f32 logits; ``lm`` takes the
+    mean over the tokens of each example."""
+    ce = F.cross_entropy(logits.flatten(0, -2), y.flatten().long(),
+                         reduction="none")
+    return ce if task == "classify" else ce.view(y.shape).mean(-1)
+
+
+def make_loss_fn(model, task: str = "classify"):
     """Masked mean softmax cross-entropy on ``model``'s f32 logits;
     inputs are scaled straight into the model's compute dtype."""
     in_dtype = getattr(model, "compute_dtype", torch.float32)
 
     def loss_fn(params, x, y, m):
         logits = functional_call(model, params, (normalize_input(x, in_dtype),))
-        ce = F.cross_entropy(logits.float(), y.long(), reduction="none")
+        ce = _cross_entropy(logits.float(), y, task)
         return (ce * m).sum() / torch.clamp_min(m.sum(), 1.0)
 
     return loss_fn
@@ -63,8 +76,9 @@ def round_to_dtype(value: float, dtype: torch.dtype) -> float:
 
 
 def make_local_train_fn(model, client_cfg: ClientConfig,
-                        local_dtype: Optional[torch.dtype] = None):
-    grad_loss = make_loss_fn(model)
+                        local_dtype: Optional[torch.dtype] = None,
+                        task: str = "classify"):
+    grad_loss = make_loss_fn(model, task)
     beta = client_cfg.momentum
 
     def local_train(global_flat: torch.Tensor, layout: ParamLayout,
@@ -110,15 +124,17 @@ def make_local_train_fn(model, client_cfg: ClientConfig,
     return local_train
 
 
-def make_eval_fn(model):
+def make_eval_fn(model, task: str = "classify"):
     """Masked eval of one batch → ``(sum_loss, sum_correct, n)`` tensors.
     Inputs are scaled in f32; the model casts them to its compute dtype."""
 
     @torch.no_grad()
     def eval_batch(params, x, y, m):
         logits = functional_call(model, params, (normalize_input(x),)).float()
-        ce = F.cross_entropy(logits, y.long(), reduction="none")
+        ce = _cross_entropy(logits, y, task)
         correct = (logits.argmax(-1) == y).float()
+        if task != "classify":
+            correct = correct.mean(-1)
         return (ce * m).sum(), (correct * m).sum(), m.sum()
 
     return eval_batch

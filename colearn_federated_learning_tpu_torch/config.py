@@ -4,9 +4,10 @@ Typed dataclasses holding the fields the port's main path reads, with
 the same names and defaults as the JAX package's ``config.py``, so a
 ``--set a.b=v`` override means the same thing in both. Unknown keys
 raise, as they do there. Named presets: ``mnist_fedavg_2`` (the CPU
-smoke), ``cifar10_fedavg_100`` (the headline workload) and
+smoke), ``cifar10_fedavg_100`` (the headline workload),
 ``cifar10_krum_byzantine`` (the headline federation under a
-sign-flipping adversary, defended by Krum).
+sign-flipping adversary, defended by Krum) and ``shakespeare_fedavg``
+(BERT-tiny as a next-token LM over 128 natural clients).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
 DTYPE_NAMES = ("float32", "bfloat16")
+PARTITIONS = ("iid", "dirichlet", "natural")
 AGGREGATORS = ("weighted_mean", "median", "trimmed_mean", "krum")
 # gauss draws its noise from jax.random's threefry, which torch's
 # generators cannot reproduce; the port leaves it out (see validate)
@@ -34,7 +36,8 @@ class ModelConfig:
 class DataConfig:
     name: str = "mnist"
     num_clients: int = 2
-    partition: str = "iid"  # iid | dirichlet
+    # iid | dirichlet | natural (LEAF groups; Dirichlet(0.3) without them)
+    partition: str = "iid"
     dirichlet_alpha: float = 0.5
     data_dir: str = "~/.cache/colearn_data"
     # real dataset files absent → deterministic synthetic stand-in of
@@ -132,8 +135,8 @@ class ExperimentConfig:
     def validate(self) -> "ExperimentConfig":
         """Reject what the port does not implement, naming the field."""
         checks = (
-            (self.data.partition in ("iid", "dirichlet"), "data.partition",
-             ("iid", "dirichlet")),
+            (self.data.partition in PARTITIONS, "data.partition",
+             PARTITIONS),
             (self.server.optimizer in ("mean", "fedavgm"),
              "server.optimizer", ("mean", "fedavgm")),
             (self.server.aggregator in AGGREGATORS, "server.aggregator",
@@ -280,10 +283,33 @@ def _cifar10_krum_byzantine() -> ExperimentConfig:
     return cfg
 
 
+def _shakespeare_fedavg() -> ExperimentConfig:
+    """FedAvg of BERT-tiny as a causal next-token LM on Shakespeare:
+    128 natural clients (LEAF roles from ``shakespeare.txt``, or a
+    Dirichlet(0.3) split of the synthetic Markov-chain corpus), cohort
+    32, batch 16, lr 0.5, bf16 compute and bf16 local params. The JAX
+    preset's ``run.cohort_layout="megabatch"`` and ``run.fuse_rounds=10``
+    are not port options; the sequential engine gives the same result,
+    one round per call. Attention is ``full`` unless
+    ``model.kwargs.attention`` says otherwise (``pallas`` selects the
+    CUDA kernel)."""
+    return ExperimentConfig(
+        name="shakespeare_fedavg",
+        model=ModelConfig(name="bert_tiny", num_classes=0,
+                          kwargs={"vocab_size": 90, "seq_len": 80}),
+        data=DataConfig(name="shakespeare", num_clients=128,
+                        partition="natural", max_examples_per_client=256),
+        client=ClientConfig(local_epochs=1, batch_size=16, lr=0.5),
+        server=ServerConfig(num_rounds=200, cohort_size=32, eval_every=10),
+        run=RunConfig(compute_dtype="bfloat16", local_param_dtype="bfloat16"),
+    )
+
+
 _NAMED = {
     "mnist_fedavg_2": _mnist_fedavg_2,
     "cifar10_fedavg_100": _cifar10_fedavg_100,
     "cifar10_krum_byzantine": _cifar10_krum_byzantine,
+    "shakespeare_fedavg": _shakespeare_fedavg,
 }
 
 

@@ -1,4 +1,4 @@
-"""Dataset registry and loaders (MNIST, CIFAR-10).
+"""Dataset registry and loaders (MNIST, CIFAR-10, Shakespeare).
 
 Each loader first looks for real data files under ``data_dir``
 (keras-style ``mnist.npz``, the CIFAR-10 python pickles). When they are
@@ -7,6 +7,11 @@ synthetic stand-in of the same shapes, dtypes and class structure is
 generated instead; ``meta["source"]`` records which. The NumPy code is
 copied from the JAX package's ``data/core.py`` so that the same config
 and seed give bitwise-identical corpora in both packages.
+
+Shakespeare is a next-token task (``task="lm"``): ``[N, T]`` int32
+windows of characters and their ``[N, T]`` next characters, from
+``shakespeare.txt`` under ``data_dir`` (data/leaf.py) or, without it, a
+fixed sparse Markov chain over the vocabulary.
 
 Images stay raw uint8 NHWC on the host; the driver moves the corpus to
 the device once per run and scales it there (client/trainer.py
@@ -25,6 +30,7 @@ import numpy as np
 
 from colearn_federated_learning_tpu_torch.config import DataConfig
 from colearn_federated_learning_tpu_torch.data import partition as partition_lib
+from colearn_federated_learning_tpu_torch.data.leaf import load_shakespeare_text
 from colearn_federated_learning_tpu_torch.utils.registry import Registry
 
 dataset_registry = Registry("dataset")
@@ -65,6 +71,22 @@ def _synthetic_images(rng: np.random.Generator, n: int, templates: np.ndarray,
     return np.clip(np.rint(x * 255.0), 0, 255).astype(np.uint8), y
 
 
+def _synthetic_text(rng: np.random.Generator, n: int, seq_len: int, vocab: int,
+                    successors: np.ndarray):
+    """Sequences from a fixed sparse Markov chain: each symbol has 4
+    plausible successors, so next-token prediction is learnable well
+    above chance. The caller draws ``successors`` once and shares it
+    between the train and the test split."""
+    seqs = np.empty((n, seq_len + 1), np.int32)
+    state = rng.integers(0, vocab, size=n)
+    seqs[:, 0] = state
+    for t in range(1, seq_len + 1):
+        choice = rng.integers(0, 4, size=n)
+        state = successors[seqs[:, t - 1], choice]
+        seqs[:, t] = state
+    return seqs[:, :-1].copy(), seqs[:, 1:].copy()
+
+
 def _stable_seed(name: str) -> int:
     # abs(hash()) is salted per-process; datasets must be reproducible
     return int.from_bytes(name.encode(), "little") % (2**31)
@@ -77,7 +99,7 @@ def _scaled_train_size(cfg: DataConfig) -> int:
 
 
 def _image_loader(name: str, shape, num_classes: int, real_fn):
-    def load(cfg: DataConfig):
+    def load(cfg: DataConfig, **_model_kwargs):
         shp = tuple(shape)
         data_dir = os.path.expanduser(cfg.data_dir)
         real = real_fn(data_dir)
@@ -140,18 +162,45 @@ dataset_registry.register("cifar10")(
     _image_loader("cifar10", (32, 32, 3), 10, _try_cifar10_real))
 
 
-def build_federated_data(cfg: DataConfig, seed: int = 0) -> FederatedData:
-    """Load a dataset and partition it into ``cfg.num_clients`` shards."""
+@dataset_registry.register("shakespeare")
+def _load_shakespeare(cfg: DataConfig, vocab_size: int = 90, seq_len: int = 80,
+                      **_model_kwargs):
+    data_dir = os.path.expanduser(cfg.data_dir)
+    txt = os.path.join(data_dir, "shakespeare.txt")
+    if os.path.exists(txt):
+        tx, ty, ex, ey, meta = load_shakespeare_text(txt, vocab_size, seq_len)
+        return tx, ty, ex, ey, meta, vocab_size, "lm"
+    if not cfg.synthetic_fallback:
+        raise FileNotFoundError(f"shakespeare: no data under {data_dir}")
+    rng = np.random.default_rng(1207)
+    successors = rng.integers(0, vocab_size, size=(vocab_size, 4))
+    tx, ty = _synthetic_text(rng, _scaled_train_size(cfg), seq_len,
+                             vocab_size, successors)
+    ex, ey = _synthetic_text(rng, cfg.synthetic_test_size, seq_len,
+                             vocab_size, successors)
+    meta = {"source": "synthetic", "input_shape": (seq_len,)}
+    return tx, ty, ex, ey, meta, vocab_size, "lm"
+
+
+def build_federated_data(cfg: DataConfig, seed: int = 0,
+                         **model_kwargs) -> FederatedData:
+    """Load a dataset and partition it into ``cfg.num_clients`` shards.
+    ``model_kwargs`` reach the loader (Shakespeare reads ``vocab_size``
+    and ``seq_len``). An LM task partitions on each window's first
+    token."""
     loader = dataset_registry.get(cfg.name)
-    tx, ty, ex, ey, meta, num_classes, task = loader(cfg)
+    tx, ty, ex, ey, meta, num_classes, task = loader(cfg, **model_kwargs)
+    labels = ty if task == "classify" else ty[:, 0]
     part_info: dict = {}
     client_indices = partition_lib.partition(
         cfg.partition,
-        labels=ty,
+        labels=labels,
         num_clients=cfg.num_clients,
-        num_classes=num_classes,
+        num_classes=(num_classes if task == "classify"
+                     else int(labels.max()) + 1),
         alpha=cfg.dirichlet_alpha,
         seed=seed,
+        natural_groups=meta.get("natural_groups"),
         info=part_info,
     )
     meta = dict(meta, partition=cfg.partition, **part_info)

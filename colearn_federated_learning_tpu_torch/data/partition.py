@@ -1,4 +1,5 @@
-"""Federated partitioners: IID and Dirichlet(α) label skew.
+"""Federated partitioners: IID, Dirichlet(α) label skew and LEAF's
+natural split.
 
 Pure NumPy on index arrays, copied from the JAX package's
 ``data/partition.py`` so that the same seed gives bitwise-identical
@@ -10,7 +11,7 @@ Invariants: the client shards partition the example index set
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -103,6 +104,31 @@ def dirichlet_partition(
     return [np.sort(np.array(s, np.int64)) for s in shards]
 
 
+def natural_partition(
+    groups: Sequence[np.ndarray], num_clients: int, seed: int
+) -> List[np.ndarray]:
+    """LEAF-style natural split: each group is one writer/character's
+    examples. If there are more groups than clients, groups are merged
+    round-robin by size (largest first) to balance; fewer groups than
+    clients is an error (natural splits can't be subdivided)."""
+    if len(groups) < num_clients:
+        raise ValueError(
+            f"natural_partition: {len(groups)} natural groups < {num_clients} clients"
+        )
+    order = np.argsort([-len(g) for g in groups])
+    assign = [[] for _ in range(num_clients)]
+    sizes = np.zeros(num_clients, np.int64)
+    for gi in order:
+        # place largest remaining group on the currently smallest client
+        tgt = int(np.argmin(sizes))
+        assign[tgt].append(gi)
+        sizes[tgt] += len(groups[gi])
+    return [
+        np.sort(np.concatenate([np.asarray(groups[gi], np.int64) for gi in gis]))
+        for gis in assign
+    ]
+
+
 def partition(
     kind: str,
     labels: np.ndarray,
@@ -110,6 +136,7 @@ def partition(
     num_classes: int,
     alpha: float,
     seed: int,
+    natural_groups: Optional[Sequence[np.ndarray]] = None,
     info: Optional[dict] = None,
 ) -> List[np.ndarray]:
     n = len(labels)
@@ -118,4 +145,11 @@ def partition(
     if kind == "dirichlet":
         return dirichlet_partition(labels, num_clients, num_classes, alpha, seed,
                                    info=info)
+    if kind == "natural":
+        if natural_groups is None:
+            # synthetic stand-in for a LEAF natural split: heavy label
+            # skew and heterogeneous sizes
+            return dirichlet_partition(labels, num_clients, num_classes,
+                                       alpha=0.3, seed=seed, info=info)
+        return natural_partition(natural_groups, num_clients, seed)
     raise ValueError(f"unknown partition kind {kind!r}")

@@ -1,4 +1,4 @@
-"""Model zoo of the port: ``resnet18`` and ``lenet5``.
+"""Model zoo of the port: ``resnet18``, ``lenet5`` and ``bert_tiny``.
 
 :func:`build_model` returns a module on the ``meta`` device (shapes
 only); parameters live outside it as ``dict[str, Tensor]`` keyed by
@@ -11,6 +11,7 @@ import inspect
 import torch
 from torch import nn
 
+from colearn_federated_learning_tpu_torch.models.bert import bert_tiny
 from colearn_federated_learning_tpu_torch.models.layers import init_params  # noqa: F401
 from colearn_federated_learning_tpu_torch.models.lenet import LeNet5
 from colearn_federated_learning_tpu_torch.models.resnet import ResNet18
@@ -19,6 +20,7 @@ from colearn_federated_learning_tpu_torch.utils.registry import Registry
 model_registry = Registry("model")
 model_registry.register("resnet18")(ResNet18)
 model_registry.register("lenet5")(LeNet5)
+model_registry.register("bert_tiny")(bert_tiny)
 
 
 def build_model(name: str, num_classes: int,

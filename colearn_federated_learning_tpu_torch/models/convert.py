@@ -7,7 +7,11 @@ becomes ``ResNetBlock_3.Conv_1.weight``. Layouts:
 
 - ``Conv*/kernel`` HWIO → ``weight`` OIHW;
 - ``Dense*/kernel`` ``[in, out]`` → ``weight`` ``[out, in]``;
-- ``GroupNorm*/scale`` → ``weight``; every ``bias`` stays ``bias``.
+- ``GroupNorm*/scale`` and ``LayerNorm*/scale`` → ``weight``; every
+  ``bias`` stays ``bias``;
+- ``Embed*/embedding`` stays ``embedding`` (``[vocab, features]`` in
+  both), and the top-level leaf ``pos_embedding`` (BERT's positions,
+  a param of no submodule) keeps its name.
 
 Both directions are exact (transposes only), so a round trip is bitwise.
 """
@@ -32,8 +36,18 @@ def _walk(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()):
             yield prefix + (key,), value
 
 
-def _kind(module_name: str) -> str:
-    return module_name.rsplit("_", 1)[0]
+def _kind(mods) -> str:
+    """The flax layer kind of the innermost module (``""`` at the top)."""
+    return mods[-1].rsplit("_", 1)[0] if mods else ""
+
+
+_NORMS = ("GroupNorm", "LayerNorm")
+
+
+def _same_name(kind: str, leaf: str) -> bool:
+    """Leaves that keep their name and layout across the bridge."""
+    return (leaf == "bias" and kind != ""
+            or (kind, leaf) in (("Embed", "embedding"), ("", "pos_embedding")))
 
 
 def flax_to_torch(params: Dict[str, Any],
@@ -46,14 +60,14 @@ def flax_to_torch(params: Dict[str, Any],
     for path, value in _walk(params):
         *mods, leaf = path
         arr = np.asarray(value)
-        kind = _kind(mods[-1])
+        kind = _kind(mods)
         if leaf == "kernel" and kind == "Conv":
             arr, leaf = arr.transpose(_CONV_TO_TORCH), "weight"
         elif leaf == "kernel" and kind == "Dense":
             arr, leaf = arr.T, "weight"
-        elif leaf == "scale" and kind == "GroupNorm":
+        elif leaf == "scale" and kind in _NORMS:
             leaf = "weight"
-        elif leaf != "bias":
+        elif not _same_name(kind, leaf):
             raise ValueError(f"unmapped flax param {'/'.join(path)}")
         out[".".join(mods + [leaf])] = torch.from_numpy(np.array(arr))
     if model is None:
@@ -80,14 +94,14 @@ def torch_to_flax(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     for name, t in params.items():
         *mods, leaf = name.split(".")
         arr = t.detach().cpu().numpy()
-        kind = _kind(mods[-1])
+        kind = _kind(mods)
         if leaf == "weight" and kind == "Conv":
             arr, leaf = arr.transpose(_CONV_TO_FLAX), "kernel"
         elif leaf == "weight" and kind == "Dense":
             arr, leaf = arr.T, "kernel"
-        elif leaf == "weight" and kind == "GroupNorm":
+        elif leaf == "weight" and kind in _NORMS:
             leaf = "scale"
-        elif leaf != "bias":
+        elif not _same_name(kind, leaf):
             raise ValueError(f"unmapped port param {name}")
         node = out
         for m in mods:

@@ -12,6 +12,12 @@ flax layer the JAX package uses:
   result cast back to it.
 - :class:`Dense`: ``Linear`` computing in its own dtype (the heads
   compute in f32 even when the local params are bf16).
+- :class:`LayerNorm`: ε = 1e-6; statistics in f32 by flax's fast
+  variance, E[x²] − E[x]² clipped at 0; the affine transform in f32;
+  the result cast to the compute dtype.
+- :class:`Embed`: a table lookup in the table's dtype, and ``attend``,
+  the tied head: query and table promoted to a common dtype, then
+  ``query @ tableᵀ``.
 
 Modules are built on the ``meta`` device: their parameters only name
 the shapes. Real tensors are passed in with
@@ -91,15 +97,47 @@ class Dense(nn.Module):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
+class LayerNorm(nn.Module):
+    def __init__(self, features: int, eps: float = 1e-6,
+                 compute_dtype=torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.compute_dtype = compute_dtype
+        self.weight = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.empty(features))
+
+    def forward(self, x):
+        xf = x.float()
+        mu = xf.mean(-1, keepdim=True)
+        var = torch.clamp_min((xf * xf).mean(-1, keepdim=True) - mu * mu, 0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (xf - mu) * mul + self.bias.float()
+        return y.to(self.compute_dtype)
+
+
+class Embed(nn.Module):
+    def __init__(self, num_embeddings: int, features: int):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.empty(num_embeddings, features))
+
+    def forward(self, tokens):
+        return F.embedding(tokens, self.embedding)
+
+    def attend(self, query):
+        dt = torch.promote_types(query.dtype, self.embedding.dtype)
+        return torch.matmul(query.to(dt), self.embedding.to(dt).T)
+
+
 # flax's lecun_normal: truncated normal at ±2σ, σ rescaled so the
 # truncated distribution has variance 1/fan_in
 _TRUNC_STD = 0.87962566103423978
 
 
 def init_params(model: nn.Module, seed: int) -> dict:
-    """Fresh f32 CPU parameters for ``model`` with flax's default
-    initializers (lecun_normal kernels, zero biases, unit GroupNorm
-    scales), drawn from a ``torch.Generator`` seeded with ``seed``.
+    """Fresh f32 CPU parameters for ``model`` with flax's initializers
+    (lecun_normal kernels, zero biases, unit norm scales, normal(0.02)
+    embeddings and positions, as models/bert.py sets them), drawn from
+    a ``torch.Generator`` seeded with ``seed``.
     The draws are the port's own: the JAX package's threefry stream
     cannot be reproduced, so parity tests start both packages from the
     same arrays instead (models/convert.py)."""
@@ -116,8 +154,10 @@ def init_params(model: nn.Module, seed: int) -> dict:
                 std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
                 nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
                                       generator=gen)
-            elif leaf == "weight" and isinstance(mod, GroupNorm):
+            elif leaf == "weight" and isinstance(mod, (GroupNorm, LayerNorm)):
                 t.fill_(1.0)
+            elif leaf in ("embedding", "pos_embedding"):
+                t.normal_(0.0, 0.02, generator=gen)
             else:
                 t.zero_()
             params[name] = t

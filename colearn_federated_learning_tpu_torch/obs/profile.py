@@ -1,18 +1,24 @@
 """Where one round of the port's main path spends its time on the card.
 
     python -m colearn_federated_learning_tpu_torch.obs.profile \\
-        [--config cifar10_fedavg_100] [--rounds 2] [--top 20] [--table PATH]
+        [--config cifar10_fedavg_100] [--set KEY=VALUE ...] [--rounds 2] \\
+        [--top 20] [--table PATH]
 
-Builds ``--config`` (``cifar10_fedavg_100`` or ``cifar10_krum_byzantine``)
-at full width on the CUDA card (synthetic CIFAR-10 at its real 50,000 /
-1,000 cardinality, the fused server apply), runs one warm-up round, times ``--rounds`` rounds, then traces
-``--rounds`` more with ``torch.profiler``. It prints JSON lines: the
-host wall time per round with and without the profiler; the summed
-device kernel time and the device's busy and idle shares (kernel time
-over the wall time of the traced rounds, and over the untraced
-rounds'); the top kernels and the top operators by device time; and
-the card's ``nvidia-smi`` name and power limit. ``--table`` also writes
-the profiler's full table. Needs a CUDA device.
+Builds ``--config`` at full width on the CUDA card, runs one warm-up
+round, times ``--rounds`` rounds, then traces ``--rounds`` more with
+``torch.profiler``. The CIFAR-10 configs (``cifar10_fedavg_100``,
+``cifar10_krum_byzantine``) run on synthetic CIFAR-10 at its real
+50,000 / 1,000 cardinality with the fused server apply (their bench
+shape); ``shakespeare_fedavg`` runs as its preset is, on the synthetic
+corpus (``--set model.kwargs.attention=pallas`` routes its attention
+through the CUDA kernel). ``--set`` overrides any config field. It
+prints JSON lines: the host wall time per round with and without the
+profiler; the summed device kernel time and the device's busy and idle
+shares (kernel time over the wall time of the traced rounds, and over
+the untraced rounds'); the kernel launches per round, all and those of
+the port's own kernels; the top kernels and the top operators by device
+time; and the card's ``nvidia-smi`` name and power limit. ``--table``
+also writes the profiler's full table. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -27,8 +33,25 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from colearn_federated_learning_tpu_torch.cli import parse_overrides
 from colearn_federated_learning_tpu_torch.config import resolve_config
+from colearn_federated_learning_tpu_torch.ops import (
+    flash_attention,
+    reduce_apply,
+    server_apply,
+)
 from colearn_federated_learning_tpu_torch.server.round_driver import Experiment
+
+# each config's bench shape: what the run overrides before --set
+_BENCH_SHAPE = {
+    "cifar10_fedavg_100": {"data.synthetic_train_size": 50000,
+                           "data.synthetic_test_size": 1000,
+                           "server.fused_apply": True},
+    "shakespeare_fedavg": {},
+}
+_BENCH_SHAPE["cifar10_krum_byzantine"] = _BENCH_SHAPE["cifar10_fedavg_100"]
+_KERNELS = (server_apply.fused_delta_apply, reduce_apply.fused_reduce_apply,
+            flash_attention.flash_attention)
 
 
 def _device_us(event) -> float:
@@ -40,7 +63,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m colearn_federated_learning_tpu_torch.obs.profile")
     ap.add_argument("--config", default="cifar10_fedavg_100",
-                    choices=("cifar10_fedavg_100", "cifar10_krum_byzantine"))
+                    choices=sorted(_BENCH_SHAPE))
+    ap.add_argument("--set", action="append", metavar="KEY=VALUE",
+                    dest="overrides", help="dotted config override")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--top", type=int, default=20)
     ap.add_argument("--table", default=None,
@@ -51,8 +76,8 @@ def main(argv=None) -> int:
         return 1
 
     cfg = resolve_config(args.config, {
-        "data.synthetic_train_size": 50000, "data.synthetic_test_size": 1000,
-        "server.fused_apply": True, "run.out_dir": ""})
+        **_BENCH_SHAPE[args.config], **parse_overrides(args.overrides),
+        "run.out_dir": ""})
     exp = Experiment(cfg, device="cuda", echo=False)
     state = exp.run_round(exp.init_state(), 0)  # warm-up
     torch.cuda.synchronize()
@@ -62,6 +87,8 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     plain_round_s = (time.perf_counter() - t0) / args.rounds
 
+    for fn in _KERNELS:
+        fn.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -85,6 +112,8 @@ def main(argv=None) -> int:
         "device_busy_share_unprofiled": device_s / plain_round_s,
         "kernel_launches_per_round":
             sum(e.count for e in kernels) / args.rounds,
+        "port_kernel_launches_per_round": {
+            fn.__name__: fn.launches / args.rounds for fn in _KERNELS},
         "cohort": cfg.server.cohort_size,
         "local_steps_per_client": exp.shape.steps,
     }), flush=True)

@@ -61,15 +61,16 @@ def make_sequential_round_fn(model, client_cfg, server_update,
                              aggregator: str = "weighted_mean",
                              trim_ratio: float = 0.1, byzantine_f: int = 0,
                              attack: str = "", attack_scale: float = 10.0,
-                             attack_eps: float = 1.0):
+                             attack_eps: float = 1.0, task: str = "classify"):
     """``round_fn`` for one cohort; ``attack`` is an upload attack or ""
-    (label_flip acts on the host data and needs nothing here).
+    (label_flip acts on the host data and needs nothing here); ``task``
+    is ``classify`` or ``lm``.
     ``round_fn.upload_stack`` builds one round's attacked stack alone."""
     if aggregator not in AGGREGATORS:
         raise ValueError(f"unknown aggregator {aggregator!r}")
     if attack and attack not in UPLOAD_ATTACKS:
         raise ValueError(f"unknown upload attack {attack!r}")
-    local_train = make_local_train_fn(model, client_cfg, local_dtype)
+    local_train = make_local_train_fn(model, client_cfg, local_dtype, task)
     stacked = aggregator != "weighted_mean" or bool(attack)
     fused_reduce = getattr(server_update, "fused_reduce", None)
 

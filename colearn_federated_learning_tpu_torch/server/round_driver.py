@@ -8,6 +8,10 @@ and checkpoints; ``evaluate`` / ``evaluate_checkpoint`` score params on
 the test split. Everything runs on ``device``, which is CUDA unless the
 caller asks for the CPU.
 
+The task follows the dataset: ``classify`` for the image corpora,
+``lm`` for Shakespeare, whose int32 token windows and ``[N, T]``
+next-token labels stay integer on the device.
+
 Host work per round is the NumPy cohort draw and index grid, pure in
 ``(seed, round)`` and identical to the JAX package's
 ``run.host_pipeline="numpy"`` path; the corpus and the eval batches
@@ -82,7 +86,8 @@ class Experiment:
             compute_dtype=DTYPES[cfg.run.compute_dtype], **cfg.model.kwargs,
         )
         self.layout = ParamLayout.from_params(dict(self.model.named_parameters()))
-        self.fed = build_federated_data(cfg.data, seed=cfg.run.seed)
+        self.fed = build_federated_data(cfg.data, seed=cfg.run.seed,
+                                        **cfg.model.kwargs)
         self.attack_kind = cfg.attack.kind
         self.compromised = None
         # round → the cohort's byzantine mask, until its record is logged
@@ -110,8 +115,9 @@ class Experiment:
             aggregator=cfg.server.aggregator,
             trim_ratio=cfg.server.trim_ratio,
             byzantine_f=cfg.server.krum_byzantine, attack=upload_attack,
-            attack_scale=cfg.attack.scale, attack_eps=cfg.attack.eps)
-        self._eval_fn = make_eval_fn(self.model)
+            attack_scale=cfg.attack.scale, attack_eps=cfg.attack.eps,
+            task=self.fed.task)
+        self._eval_fn = make_eval_fn(self.model, self.fed.task)
         dev = self.device
         self.train_x = torch.from_numpy(self.fed.train_x).to(dev)
         self.train_y = torch.from_numpy(self.fed.train_y).long().to(dev)

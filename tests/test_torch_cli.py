@@ -1,12 +1,14 @@
 """The PyTorch port's entry points on the CPU: in-process ``fit`` and
-``evaluate`` of ``mnist_fedavg_2`` at tiny sizes (``evaluate`` of the
-checkpoint reproduces ``fit``'s final ``eval_loss`` bit for bit), the
-CUDA default that raises instead of falling back, config errors, and
+``evaluate`` of ``mnist_fedavg_2`` and ``shakespeare_fedavg`` at tiny
+sizes (``evaluate`` of the checkpoint reproduces ``fit``'s final
+``eval_loss`` bit for bit), the CUDA default that raises instead of
+falling back, config errors, and
 the presets against the JAX package's."""
 
 import dataclasses
 import json
 
+import numpy as np
 import pytest
 import torch
 
@@ -91,7 +93,33 @@ def test_profile_needs_a_gpu(monkeypatch, capsys):
 def test_configs_lists_the_named_configs(capsys):
     assert cli.main(["configs"]) == 0
     assert capsys.readouterr().out.split() == [
-        "cifar10_fedavg_100", "cifar10_krum_byzantine", "mnist_fedavg_2"]
+        "cifar10_fedavg_100", "cifar10_krum_byzantine", "mnist_fedavg_2",
+        "shakespeare_fedavg"]
+
+
+def test_shakespeare_fit_then_evaluate_reproduces_eval_loss(tmp_path,
+                                                            capsys):
+    """The third path at a tiny size: BERT-tiny at T = 16 through the
+    ``pallas`` backend (its plain version on the CPU), 8 clients."""
+    args = ["--config", "shakespeare_fedavg", "--out-dir", str(tmp_path),
+            "--device", "cpu", "--set", "model.kwargs.attention=pallas",
+            "--set", "model.kwargs.seq_len=16", "--set", "data.num_clients=8",
+            "--set", "server.cohort_size=3", "--set", "server.num_rounds=2",
+            "--set", "server.eval_every=2", "--set",
+            "data.max_examples_per_client=32", "--set",
+            "data.synthetic_test_size=40"]
+    assert cli.main(["fit"] + args) == 0
+    lines = _json_lines(capsys.readouterr().out)
+    rounds = [r for r in lines if "train_loss" in r]
+    assert [r["round"] for r in rounds] == [1, 2]
+    assert all(np.isfinite(r["train_loss"]) for r in rounds)
+    assert "eval_loss" in rounds[-1]
+    done = lines[-1]
+    assert done["event"] == "done"
+    assert cli.main(["evaluate"] + args) == 0
+    out = _json_lines(capsys.readouterr().out)[-1]
+    assert out["eval_loss"] == done["eval_loss"]  # bitwise
+    assert out["eval_acc"] == done["eval_acc"]
 
 
 def test_evaluate_without_checkpoint_exits_2(tmp_path, capsys):
@@ -111,7 +139,8 @@ def _leaf_fields(dc, prefix=""):
 
 
 @pytest.mark.parametrize("name", ["mnist_fedavg_2", "cifar10_fedavg_100",
-                                  "cifar10_krum_byzantine"])
+                                  "cifar10_krum_byzantine",
+                                  "shakespeare_fedavg"])
 def test_presets_match_the_jax_package(name):
     """Every field the port keeps has the JAX preset's value."""
     port = tcfg.resolve_config(name)

@@ -3,31 +3,24 @@ layouts transposed, a round trip bitwise; the port's model has exactly
 the JAX model's parameters; the flat f32 server buffer serves views."""
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from colearn_federated_learning_tpu.models import build_model as jbuild
 from colearn_federated_learning_tpu_torch.models import build_model, init_params
 from colearn_federated_learning_tpu_torch.models.convert import (
     flax_to_torch,
     torch_to_flax,
 )
 from colearn_federated_learning_tpu_torch.utils.trees import ParamLayout
+from tests.torch_parity import param_shapes
 
 torch.set_num_threads(1)
-
-_INPUT = {"resnet18": (32, 32, 3), "lenet5": (28, 28, 1)}
-
 
 def _flax_params(name, seed=0, **kw):
     """Random flax params of the JAX model's exact tree (shapes from
     eval_shape — no compile), drawn with numpy."""
-    jm = jbuild(name, 10, **kw)
-    shapes = jax.eval_shape(
-        lambda: jm.init(jax.random.PRNGKey(0),
-                        jnp.zeros((1,) + _INPUT[name]))["params"])
+    shapes = param_shapes(name, **kw)
     rng = np.random.default_rng(seed)
     return jax.tree.map(
         lambda s: rng.normal(size=s.shape).astype(np.float32), shapes)

@@ -46,9 +46,11 @@ def test_port_has_the_expected_layout():
                 "server/round_driver.py", "parallel/round_engine.py",
                 "ops/server_apply.py", "ops/reduce_apply.py",
                 "server/attacks.py", "utils/metrics.py",
-                "utils/checkpoint.py", "obs/profile.py"):
+                "utils/checkpoint.py", "obs/profile.py", "data/leaf.py",
+                "models/bert.py", "ops/attention.py", "ops/ring_attention.py",
+                "ops/flash_attention.py", "ops/backends.py"):
         assert rel in files, rel
-    for cu in ("server_apply.cu", "reduce_apply.cu"):
+    for cu in ("server_apply.cu", "reduce_apply.cu", "flash_attention.cu"):
         assert os.path.isfile(os.path.join(_PORT, "ops", "csrc", cu))
 
 

@@ -1,13 +1,21 @@
 """The port's hand-written CUDA kernels against their plain PyTorch
 versions, on the card. Every test here is marked ``cuda`` and skips
-without a CUDA device (a CUDA kernel has no CPU mode). The file imports
-no JAX, so on a machine without it the tests run with
-``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``."""
+without a CUDA device (a CUDA kernel has no CPU mode). The flash-
+attention kernel's cases against its plain version are in
+tests/test_torch_flash_attention_cuda.py. These files import no JAX,
+so on a machine without it the tests run with
+``python -m pytest --noconftest -m cuda tests/test_torch_*cuda*.py``."""
 
 import pytest
 import torch
 
+from colearn_federated_learning_tpu_torch.ops import (
+    flash_attention as fa,
+)
 from colearn_federated_learning_tpu_torch.ops import reduce_apply, server_apply
+from colearn_federated_learning_tpu_torch.ops.attention import (
+    causal_attention,
+)
 from colearn_federated_learning_tpu_torch.ops.reduce_apply import (
     fused_reduce_apply,
     new_stack,
@@ -98,3 +106,41 @@ def test_reduce_apply_rejects_a_dense_stack_of_odd_rows():
         fused_reduce_apply(torch.zeros(3, n, device="cuda"),
                            torch.ones(3, device="cuda"), p, 1.0)
     assert fused_reduce_apply.launches == before
+
+
+@pytest.mark.cuda
+def test_flash_attention_grads_on_card():
+    """The autograd.Function (kernel forward, recomputed backward)
+    against autograd of the plain causal attention, f32, within 2e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn(16, 80, 128, device="cuda", generator=gen)
+               for _ in range(3))
+    g = torch.randn(16, 80, 128, device="cuda", generator=gen)
+    got = torch.autograd.grad(
+        fa.flash_attention(*(x.requires_grad_() for x in (q, k, v)), 2),
+        (q, k, v), g)
+    want = torch.autograd.grad(causal_attention(q, k, v, 2), (q, k, v), g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    q = torch.zeros(4, 80, 64, device="cuda")
+    before = fa.flash_attention.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.attention_forward(q.transpose(1, 2).contiguous().transpose(1, 2),
+                             q, q)
+    with pytest.raises(ValueError, match="k is"):
+        fa.attention_forward(q, q[:, :40], q)
+    with pytest.raises(ValueError, match="head dims"):
+        x = torch.zeros(4, 80, 48, device="cuda")
+        fa.attention_forward(x, x, x)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        x = q.half()
+        fa.attention_forward(x, x, x)
+    assert fa.flash_attention.launches == before

@@ -32,6 +32,7 @@ from colearn_federated_learning_tpu_torch.client.trainer import (
 from colearn_federated_learning_tpu_torch.models import build_model
 from colearn_federated_learning_tpu_torch.models.convert import flax_to_torch
 from colearn_federated_learning_tpu_torch.models.layers import same_pads
+from tests.torch_parity import jax_model, param_shapes
 
 torch.set_num_threads(1)
 
@@ -42,11 +43,9 @@ def _bf16_atol(ref):
     return 4 * 2.0**-8 * max(1.0, float(np.abs(ref).max()))
 
 
-def _setup(name="resnet18", shape=(32, 32, 3), seed=0, **kw):
-    jm = jbuild(name, 10, **kw)
-    shapes = jax.eval_shape(
-        lambda: jm.init(jax.random.PRNGKey(0), jnp.zeros((1,) + shape))
-    )["params"]
+def _setup(name="resnet18", seed=0, **kw):
+    jm = jax_model(name, **kw)
+    shapes = param_shapes(name, **kw)
     rng = np.random.default_rng(seed)
     # unit-variance-preserving scale per kernel (fan-in over all but out)
     fp = jax.tree.map(
@@ -131,7 +130,7 @@ def test_masked_loss_and_grads_f32():
 
 
 def test_lenet_logits_f32():
-    jm, fp, rng = _setup("lenet5", shape=(28, 28, 1))
+    jm, fp, rng = _setup("lenet5")
     x = rng.uniform(size=(5, 28, 28, 1)).astype(np.float32)
     want = np.asarray(jax.jit(lambda p, x: jm.apply({"params": p}, x))(fp, x))
     model = build_model("lenet5", 10)
