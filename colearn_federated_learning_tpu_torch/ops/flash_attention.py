@@ -11,7 +11,8 @@ accumulators, scores of masked keys at −1e30, and the output
 
 - **Forward.** The heads are split into ``[B·H, T, hd]``. On a CUDA
   tensor the wrapper launches ``csrc/flash_attention.cu`` (f32 or bf16,
-  hd ∈ {16, 32, 64, 128}, any T, causal or not) or raises; only a CPU
+  hd ∈ {16, 32, 64, 128}, any T, causal or not; bf16 on the tensor
+  cores, which read 16-byte-aligned q, k, v) or raises; only a CPU
   tensor takes the plain version (:func:`attention_reference`), which
   runs ``ops/ring_attention.py``'s online-softmax recurrence over the TPU
   kernel's k/v tiles in torch ops.
@@ -105,6 +106,10 @@ def _launch(q, k, v, causal: bool):
         raise ValueError("flash_attention kernel needs contiguous q, k, v")
     if bh == 0 or t == 0:
         raise ValueError(f"empty attention input {tuple(q.shape)}")
+    if q.dtype == torch.bfloat16 and any(
+            x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("flash_attention's bf16 kernel needs 16-byte-"
+                         "aligned q, k, v")
     out = torch.empty_like(q)
     lib = LIBRARY.load()
     with torch.cuda.device(q.device):
