@@ -11,8 +11,9 @@ of which fails the run:
 1. build the hand-written CUDA kernels (``fused_delta_apply``,
    ``fused_reduce_apply``, ``flash_attention``);
 2. hold ``fused_delta_apply`` against its plain PyTorch version on
-   random f32 vectors of the ResNet-18 length and of an odd length, both
-   branches (no momentum / momentum), bit for bit;
+   random f32 vectors of the ResNet-18 length, of MobileNetV2's length
+   (2 mod 4: the scalar tail runs) and of an odd length, both branches
+   (no momentum / momentum), bit for bit;
 3. hold ``fused_reduce_apply`` against its plain version on a K = 16
    stack at the same lengths, both branches, with random weights, a
    one-hot row and an all-zero row, within the same tolerance;
@@ -30,9 +31,11 @@ of which fails the run:
    bound for the bytes the pass must move and the operations it does
    (``flash_attention``: bf16, causal, at the path's shape, and its f32
    branch, beside ``scaled_dot_product_attention(..., is_causal=True)``
-   on the same inputs, each as device time with the host held off by a
-   sleep kernel, since at this size a call costs the host more than the
-   card);
+   on the same inputs, as device time with the host held off, since at
+   these sizes a call costs the host more than the card;
+   ``fused_delta_apply`` also at MobileNetV2's length beside
+   ``torch.add``, with the L2 cold before each call, as the path's one
+   call a round finds it);
 6. drive the first path — ``fit`` of ``cifar10_fedavg_100`` (ResNet-18
    at full width, synthetic CIFAR-10 at its real 50,000 / 1,000
    cardinality, cohort 16, bf16 local training, the fused server apply)
@@ -57,7 +60,21 @@ of which fails the run:
    and every eval batch (counted from the round's masks and eval's
    batches), and no launch of the two apply kernels; it also prints the
    first round's train loss under ``attention=full`` from the same
-   init, beside the ``pallas`` one (not gated).
+   init, beside the ``pallas`` one (not gated);
+9. drive the fourth path — ``fit`` of ``femnist_fedprox_500`` (FedProx,
+   μ = 0.01, of MobileNetV2 at width 1.0 over 500 synthetic FEMNIST
+   clients, cohort 32, bf16 local training, the fused server apply) for
+   12 rounds, evaluating after the last — and check finite losses, one
+   ``fused_delta_apply`` launch per round and none of the other kernels,
+   ``algorithm: "fedprox"`` in every round's record, a final eval loss
+   below the untrained model's and below ln 62 (a uniform guess over the
+   62 classes, which an untrained model that only calibrated its logits
+   would reach), and eval accuracy above chance (1/62);
+10. drive the fifth path — ``fit`` of ``cifar10_fedavg_1000`` (ResNet-18
+   at full width, 1000 Dirichlet clients over synthetic CIFAR-10's
+   50,000 examples, cohort 64, bf16 local training, the fused server
+   apply) for 2 rounds — and check finite losses and one
+   ``fused_delta_apply`` launch per round and none of the others.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after. The lines before the last report the card
@@ -80,6 +97,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_RESNET18 = 11_173_962  # ResNet-18 (width 64) parameter count
+N_MOBILENET = 2_302_718  # MobileNetV2 (width 1.0, 62 classes)
 N_ODD = 1_000_003
 K_COHORT = 16  # the cohort of both configs
 ATOL = RTOL = 1e-6
@@ -87,6 +105,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 ROUNDS = 3
+FEMNIST_ROUNDS = 12
 DATA_SETS = ("data.synthetic_train_size=50000",
              "data.synthetic_test_size=1000")
 PALLAS = "colearn_federated_learning_tpu/ops/pallas_apply.py"
@@ -169,6 +188,27 @@ def device_ms(fn, iters: int = 100, warmup: int = 10,
         sleep_cycles *= 4
     raise RuntimeError(f"device_ms: the sleep did not outlast the host's "
                        f"enqueue of {iters} calls in {tries} tries")
+
+
+def cold_ms(fn, iters: int = 21, flush_bytes: int = 256 << 20) -> float:
+    """Median device time of one call of ``fn`` with the 50 MB L2 cold:
+    before each call a ``flush_bytes`` write evicts it and keeps the
+    card busy while the host enqueues the call, and CUDA events around
+    the call time it alone (for a pass whose data fits in L2, which
+    back-to-back calls would find there)."""
+    import torch
+
+    flush = torch.empty(flush_bytes // 4, device="cuda")
+    fn()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, end in events:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sorted(s.elapsed_time(e) for s, e in events)[iters // 2]
 
 
 def bound_ms(nbytes: int, flops: int,
@@ -272,7 +312,7 @@ def delta_kernel_phase(server_apply) -> dict:
     import torch
 
     errs = {}
-    for n in (N_RESNET18, N_ODD):
+    for n in (N_RESNET18, N_MOBILENET, N_ODD):
         for momentum in (False, True):
             errs[(n, momentum)] = check_delta_kernel(server_apply, n,
                                                      momentum,
@@ -290,8 +330,8 @@ def delta_kernel_phase(server_apply) -> dict:
     for momentum in (False, True):
         mo = m if momentum else None
         rows[momentum] = {
-            "max_abs_err": max(errs[(N_RESNET18, momentum)],
-                               errs[(N_ODD, momentum)]),
+            "max_abs_err": max(e for (_, mom), e in errs.items()
+                               if mom == momentum),
             "ms": time_ms(lambda: server_apply.fused_delta_apply(
                 p, d, lr, mo, beta)),
             "plain_ms": time_ms(lambda: server_apply.delta_apply_reference(
@@ -300,8 +340,17 @@ def delta_kernel_phase(server_apply) -> dict:
                 lambda: torch.add(p, d, alpha=lr)),
             **delta_bound(n, momentum),
         }
+    # the mean branch at the femnist path's length: its 27.6 MB fit in
+    # L2, which back-to-back calls would find there; the path's one call
+    # a round finds them cold
+    small = p[:N_MOBILENET].clone(), d[:N_MOBILENET].clone()
+    mobilenet = dict(
+        delta_bound(N_MOBILENET, False),
+        cold_ms=cold_ms(lambda: server_apply.fused_delta_apply(*small, lr)),
+        library_cold_ms=cold_ms(lambda: torch.add(*small, alpha=lr)))
     emit({"phase": "delta_kernel_timing", "n": n,
-          "mean": rows[False], "fedavgm": rows[True]})
+          "mean": rows[False], "fedavgm": rows[True],
+          "mean_at_mobilenet_n": dict(mobilenet, n=N_MOBILENET)})
     return rows
 
 
@@ -529,12 +578,15 @@ def make_experiment(name: str, sets, out_dir: str):
     return exp, time.perf_counter() - t0
 
 
-def fit_and_check(exp, kernels) -> dict:
-    """Drive ``fit`` with every launch count at 0; check finite losses
-    and moved params; return the records, counts and timings."""
+def fit_and_check(exp, kernels, rounds: int = ROUNDS,
+                  state=None) -> dict:
+    """Drive ``fit`` for ``rounds`` rounds with every launch count at 0;
+    check finite losses and moved params; return the records, counts and
+    timings."""
     import torch
 
-    state = exp.init_state()
+    if state is None:
+        state = exp.init_state()
     p0 = state["params"].clone()
     torch.cuda.synchronize()
     reset_counts(kernels)
@@ -545,7 +597,7 @@ def fit_and_check(exp, kernels) -> dict:
     counts = read_counts(kernels)
     records = [r for r in exp.logger.history if "train_loss" in r]
     losses = [r["train_loss"] for r in records]
-    if len(losses) != ROUNDS or not all(math.isfinite(x) for x in losses):
+    if len(losses) != rounds or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"train losses not finite per round: {losses}")
     if torch.equal(p0, state["params"]):
         raise AssertionError("params did not change over the fit")
@@ -553,12 +605,13 @@ def fit_and_check(exp, kernels) -> dict:
             "counts": counts, "fit_s": fit_s}
 
 
-def steady_round_s(exp, state) -> float:
-    """Best wall time of 2 more rounds on warm caches."""
+def steady_round_s(exp, state, first: int = ROUNDS) -> float:
+    """Best wall time of 2 more rounds on warm caches, from round
+    ``first``."""
     import torch
 
     steady = []
-    for r in range(ROUNDS, ROUNDS + 2):
+    for r in range(first, first + 2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state = exp.run_round(state, r)
@@ -567,9 +620,30 @@ def steady_round_s(exp, state) -> float:
     return min(steady)
 
 
-def fedavg_path_phase(kernels) -> dict:
+def only_delta_apply(counts, rounds: int, path: str) -> None:
+    """One ``fused_delta_apply`` launch a round (no momentum) and no
+    launch of the other kernels, or raise."""
+    if (counts["fused_delta_apply"]["launches"] != rounds
+            or counts["fused_delta_apply"]["momentum_launches"]
+            or counts["fused_reduce_apply"]["launches"]
+            or counts["flash_attention"]["launches"]):
+        raise AssertionError(f"the {path} path launched {counts} in "
+                             f"{rounds} rounds (want one fused_delta_apply "
+                             f"a round and no other kernel)")
+
+
+def path_numbers(exp, run, setup_s: float, round_s: float) -> dict:
     import torch
 
+    cohort = exp.cfg.server.cohort_size
+    return {"setup_s": round(setup_s, 3), "fit_s": round(run["fit_s"], 3),
+            "steady_round_s": round(round_s, 4),
+            "rounds_per_sec": round(1.0 / round_s, 4),
+            "client_updates_per_sec": round(cohort / round_s, 4),
+            "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3)}
+
+
+def fedavg_path_phase(kernels) -> dict:
     out_dir = os.path.join(ROOT, "runs", "chip_smoke")
     shutil.rmtree(out_dir, ignore_errors=True)
     sets = DATA_SETS + (f"server.num_rounds={ROUNDS}",
@@ -577,13 +651,7 @@ def fedavg_path_phase(kernels) -> dict:
     exp, setup_s = make_experiment("cifar10_fedavg_100", sets, out_dir)
     run = fit_and_check(exp, kernels)
     counts = run["counts"]
-    if counts["fused_delta_apply"]["launches"] != ROUNDS:
-        raise AssertionError(f"fused_delta_apply launched {counts} in "
-                             f"{ROUNDS} rounds")
-    if (counts["fused_reduce_apply"]["launches"]
-            or counts["flash_attention"]["launches"]):
-        raise AssertionError(f"the FedAvg path reached the reduce or the "
-                             f"attention kernel: {counts}")
+    only_delta_apply(counts, ROUNDS, "cifar10_fedavg_100")
     state = run["state"]
     final = exp.evaluate(state["params"])
     if not math.isfinite(final["eval_loss"]):
@@ -608,11 +676,7 @@ def fedavg_path_phase(kernels) -> dict:
           "rounds": ROUNDS, "launches": counts, "train_loss": run["losses"],
           "eval_loss": final["eval_loss"], "eval_acc": final["eval_acc"],
           "evaluate_eval_loss": reloaded["eval_loss"],
-          "setup_s": round(setup_s, 3), "fit_s": round(run["fit_s"], 3),
-          "steady_round_s": round(round_s, 4),
-          "rounds_per_sec": round(1.0 / round_s, 4),
-          "client_updates_per_sec": round(K_COHORT / round_s, 4),
-          "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3)})
+          **path_numbers(exp, run, setup_s, round_s)})
     return counts
 
 
@@ -641,8 +705,8 @@ def krum_path_phase(kernels, reduce_apply, server_apply) -> dict:
     if any("byzantine_count" not in r for r in records):
         raise AssertionError(f"byzantine_count missing from {records}")
     state = run["state"]
-    round_s = steady_round_s(exp, state)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # before the route check, whose second stack is not the path's
+    numbers = path_numbers(exp, run, setup_s, steady_round_s(exp, state))
 
     # the fused and the unfused route on one round's stack
     params = state["params"]
@@ -677,18 +741,11 @@ def krum_path_phase(kernels, reduce_apply, server_apply) -> dict:
           "fused_vs_unfused_max_abs_err": route_err,
           "route_check_winner_slot": int(winner),
           "route_check_winner_byzantine": int(byz[int(winner)]),
-          "setup_s": round(setup_s, 3), "fit_s": round(run["fit_s"], 3),
-          "steady_round_s": round(round_s, 4),
-          "rounds_per_sec": round(1.0 / round_s, 4),
-          "client_updates_per_sec": round(K_COHORT / round_s, 4),
-          "stack_gb": round(stack.numel() * 4 / 1e9, 3),
-          "peak_mem_gb": round(peak_gb, 3)})
+          "stack_gb": round(stack.numel() * 4 / 1e9, 3), **numbers})
     return counts
 
 
 def shakespeare_path_phase(kernels) -> dict:
-    import torch
-
     sets = (f"server.num_rounds={ROUNDS}", f"server.eval_every={ROUNDS}",
             "model.kwargs.attention=pallas")
     exp, setup_s = make_experiment("shakespeare_fedavg", sets, "")
@@ -711,11 +768,9 @@ def shakespeare_path_phase(kernels) -> dict:
     final = run["records"][-1]
     if not math.isfinite(final.get("eval_loss", math.nan)):
         raise AssertionError(f"eval loss not finite: {final}")
-    state = run["state"]
-    round_s = steady_round_s(exp, state)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    cohort = exp.cfg.server.cohort_size
-    del exp, state
+    numbers = path_numbers(exp, run, setup_s,
+                           steady_round_s(exp, run.pop("state")))
+    del exp
 
     # the first round under full attention from the same init (not gated)
     full, _ = make_experiment("shakespeare_fedavg", (
@@ -728,11 +783,62 @@ def shakespeare_path_phase(kernels) -> dict:
           "eval_batches": eval_batches, "train_loss": run["losses"],
           "eval_loss": final["eval_loss"], "eval_acc": final["eval_acc"],
           "first_round_train_loss_full_attention": full_loss,
-          "setup_s": round(setup_s, 3), "fit_s": round(run["fit_s"], 3),
-          "steady_round_s": round(round_s, 4),
-          "rounds_per_sec": round(1.0 / round_s, 4),
-          "client_updates_per_sec": round(cohort / round_s, 4),
-          "peak_mem_gb": round(peak_gb, 3)})
+          **numbers})
+    return counts
+
+
+def femnist_path_phase(kernels) -> dict:
+    rounds = FEMNIST_ROUNDS
+    sets = (f"server.num_rounds={rounds}", f"server.eval_every={rounds}",
+            "server.fused_apply=true")
+    exp, setup_s = make_experiment("femnist_fedprox_500", sets, "")
+    state = exp.init_state()
+    untrained = exp.evaluate(state["params"])
+    run = fit_and_check(exp, kernels, rounds, state)
+    counts = run["counts"]
+    only_delta_apply(counts, rounds, "femnist_fedprox_500")
+    records = run["records"]
+    if any(r.get("algorithm") != "fedprox" for r in records):
+        raise AssertionError(f"algorithm 'fedprox' missing from {records}")
+    final = records[-1]
+    classes = exp.cfg.model.num_classes
+    loss, acc = final.get("eval_loss", math.inf), final.get("eval_acc", 0.0)
+    if not (loss < min(untrained["eval_loss"], math.log(classes))
+            and acc > 1.0 / classes):
+        raise AssertionError(
+            f"after {rounds} rounds eval loss {loss} is not below both the "
+            f"untrained model's {untrained['eval_loss']} and ln {classes} "
+            f"= {math.log(classes)}, or eval accuracy {acc} is not above "
+            f"1/{classes}")
+    round_s = steady_round_s(exp, run["state"], rounds)
+    emit({"phase": "femnist_path", "config": "femnist_fedprox_500",
+          "algorithm": exp.cfg.algorithm, "prox_mu": exp.cfg.client.prox_mu,
+          "params": exp.layout.numel, "rounds": rounds, "launches": counts,
+          "train_loss": run["losses"],
+          "untrained_eval_loss": untrained["eval_loss"],
+          "untrained_eval_acc": untrained["eval_acc"],
+          "eval_loss": final["eval_loss"], "eval_acc": final["eval_acc"],
+          "local_steps_run": sum(int((exp._round_inputs(r)[4] > 0).sum())
+                                 for r in range(rounds)),
+          **path_numbers(exp, run, setup_s, round_s)})
+    return counts
+
+
+def fedavg_1000_path_phase(kernels) -> dict:
+    rounds = 2
+    sets = (f"server.num_rounds={rounds}", "server.fused_apply=true")
+    exp, setup_s = make_experiment("cifar10_fedavg_1000", sets, "")
+    run = fit_and_check(exp, kernels, rounds)
+    counts = run["counts"]
+    only_delta_apply(counts, rounds, "cifar10_fedavg_1000")
+    round_s = steady_round_s(exp, run["state"], rounds)
+    emit({"phase": "fedavg_1000_path", "config": "cifar10_fedavg_1000",
+          "clients": exp.fed.num_clients,
+          "train_examples": int(exp.fed.train_x.shape[0]),
+          "rounds": rounds, "launches": counts, "train_loss": run["losses"],
+          "local_steps_run": sum(int((exp._round_inputs(r)[4] > 0).sum())
+                                 for r in range(rounds)),
+          **path_numbers(exp, run, setup_s, round_s)})
     return counts
 
 
@@ -814,6 +920,8 @@ def main() -> int:
             "cifar10_krum_byzantine": krum_path_phase(kernels, reduce_apply,
                                                       server_apply),
             "shakespeare_fedavg": shakespeare_path_phase(kernels),
+            "femnist_fedprox_500": femnist_path_phase(kernels),
+            "cifar10_fedavg_1000": fedavg_1000_path_phase(kernels),
         }
     except Exception as e:  # every phase failure ends the run non-zero
         import traceback

@@ -8,12 +8,20 @@ and returns the client's trained flat buffer. Batches are gathered on
 the device from the device-resident corpus.
 
 Semantics follow the JAX package's fused scalar-gated SGD step
-(``client/trainer.py``): ``m ← β·m + g;  p ← p − lr·m`` with ``lr`` and
-``β`` rounded to the parameter dtype first, as its
-``lr_eff.astype(p.dtype)`` does. A padded step (all-zero mask, v = 0)
-is an exact no-op there (``lr_eff = β_eff − 1 = 0``); here the host
-knows the mask, so the step is not run at all, which leaves params
-and momentum bitwise unchanged in the same way.
+(``client/trainer.py`` ``_make_step``), in its order:
+
+1. FedProx's pull ``g ← g + μ·(p − p₀)`` (``client.prox_mu``), with p₀
+   the round's params cast to the local dtype — a copy kept beside the
+   buffer that trains;
+2. momentum ``m ← β·m + g``;
+3. ``p ← p − lr·m``, with ``lr`` rounded to the parameter dtype first,
+   as its ``lr_eff.astype(p.dtype)`` does; μ and β are rounded to it as
+   well.
+
+A padded step (all-zero mask, v = 0) is an exact no-op there
+(``lr_eff = β_eff − 1 = 0``); here the host knows the mask, so the step
+is not run at all, which leaves params and momentum bitwise unchanged in
+the same way.
 
 Tasks: ``classify`` (``y`` ``[B]``) and ``lm`` (``y`` ``[B, T]`` next
 tokens: per-token cross-entropy and accuracy, each a mean over T, then
@@ -80,6 +88,7 @@ def make_local_train_fn(model, client_cfg: ClientConfig,
                         task: str = "classify"):
     grad_loss = make_loss_fn(model, task)
     beta = client_cfg.momentum
+    mu = client_cfg.prox_mu
 
     def local_train(global_flat: torch.Tensor, layout: ParamLayout,
                     train_x: torch.Tensor, train_y: torch.Tensor,
@@ -92,6 +101,10 @@ def make_local_train_fn(model, client_cfg: ClientConfig,
         flat = global_flat.to(dtype=dtype, copy=True)
         params = layout.views(flat)
         leaves = list(params.values())
+        # p₀: the round's params in the local dtype, beside the buffer
+        # that trains
+        anchor = (list(layout.views(flat.clone()).values()) if mu > 0.0
+                  else None)
         for t in leaves:
             t.requires_grad_(True)
         moms = None
@@ -99,6 +112,7 @@ def make_local_train_fn(model, client_cfg: ClientConfig,
             moms = list(layout.views(torch.zeros_like(flat)).values())
         lr_c = round_to_dtype(client_cfg.lr, dtype)
         beta_c = round_to_dtype(beta, dtype)
+        mu_c = round_to_dtype(mu, dtype)
         loss_sum = torch.zeros((), dtype=torch.float32, device=flat.device)
         for s in range(idx.shape[0]):
             n = float(step_counts[s])
@@ -108,6 +122,10 @@ def make_local_train_fn(model, client_cfg: ClientConfig,
             loss = grad_loss(params, train_x[ids], train_y[ids], mask[s])
             grads = torch.autograd.grad(loss, leaves)
             with torch.no_grad():
+                if anchor is not None:  # ∇ of μ/2‖p − p₀‖²
+                    pull = torch._foreach_sub(leaves, anchor)
+                    torch._foreach_mul_(pull, mu_c)
+                    grads = torch._foreach_add(grads, pull)
                 direction = grads
                 if moms is not None:
                     torch._foreach_mul_(moms, beta_c)

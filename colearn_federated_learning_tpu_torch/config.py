@@ -5,9 +5,12 @@ the same names and defaults as the JAX package's ``config.py``, so a
 ``--set a.b=v`` override means the same thing in both. Unknown keys
 raise, as they do there. Named presets: ``mnist_fedavg_2`` (the CPU
 smoke), ``cifar10_fedavg_100`` (the headline workload),
-``cifar10_krum_byzantine`` (the headline federation under a
-sign-flipping adversary, defended by Krum) and ``shakespeare_fedavg``
-(BERT-tiny as a next-token LM over 128 natural clients).
+``cifar10_fedavg_1000`` (the same workload over 1000 clients, cohort
+64), ``cifar10_krum_byzantine`` (the headline federation under a
+sign-flipping adversary, defended by Krum), ``femnist_fedprox_500``
+(FedProx of MobileNetV2 over 500 FEMNIST clients) and
+``shakespeare_fedavg`` (BERT-tiny as a next-token LM over 128 natural
+clients).
 """
 
 from __future__ import annotations
@@ -22,6 +25,9 @@ AGGREGATORS = ("weighted_mean", "median", "trimmed_mean", "krum")
 # gauss draws its noise from jax.random's threefry, which torch's
 # generators cannot reproduce; the port leaves it out (see validate)
 ATTACK_KINDS = ("sign_flip", "scale", "alie", "label_flip")
+# the stateless algorithms; scaffold, feddyn, fedbuff and gossip are not
+# ported
+ALGORITHMS = ("fedavg", "fedprox")
 
 
 @dataclass
@@ -53,12 +59,16 @@ class DataConfig:
 
 @dataclass
 class ClientConfig:
-    """Local SGD with (β = ``momentum``) heavy-ball momentum."""
+    """Local SGD with (β = ``momentum``) heavy-ball momentum and
+    FedProx's proximal pull. The JAX package's ``lr_decay`` and
+    ``weight_decay`` are not ported: no preset sets them."""
 
     local_epochs: int = 1
     batch_size: int = 32
     lr: float = 0.1
     momentum: float = 0.9
+    # FedProx proximal coefficient μ (0.0 == plain FedAvg local training)
+    prox_mu: float = 0.0
 
 
 @dataclass
@@ -120,11 +130,13 @@ class RunConfig:
 
 @dataclass
 class ExperimentConfig:
-    """A FedAvg experiment (uniform cohort sampling, client SGD, f32
-    server params — the only algorithm, sampler, client optimizer and
+    """A FedAvg or FedProx experiment (uniform cohort sampling, client
+    SGD, f32 server params — the only sampler, client optimizer and
     server dtype the port has so far), optionally under attack."""
 
     name: str = "mnist_fedavg_2"
+    # fedavg | fedprox (FedAvg with the proximal term; client.prox_mu > 0)
+    algorithm: str = "fedavg"
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
     client: ClientConfig = field(default_factory=ClientConfig)
@@ -134,7 +146,11 @@ class ExperimentConfig:
 
     def validate(self) -> "ExperimentConfig":
         """Reject what the port does not implement, naming the field."""
+        if self.algorithm == "fedprox" and self.client.prox_mu <= 0:
+            raise ValueError("algorithm='fedprox' requires client.prox_mu "
+                             f"> 0, got {self.client.prox_mu}")
         checks = (
+            (self.algorithm in ALGORITHMS, "algorithm", ALGORITHMS),
             (self.data.partition in PARTITIONS, "data.partition",
              PARTITIONS),
             (self.server.optimizer in ("mean", "fedavgm"),
@@ -305,10 +321,69 @@ def _shakespeare_fedavg() -> ExperimentConfig:
     )
 
 
+def _cifar10_fedavg_1000() -> ExperimentConfig:
+    """The north-star scale config: the headline's per-client workload
+    (ResNet-18, batch 64, lr 0.05, bf16 local training) over 1000
+    Dirichlet(0.5) clients of the full 50,000-example CIFAR-10 corpus
+    (2,000 test examples), cohort 64; ``max_examples_per_client=128``
+    bounds the pad of the small, skewed shards. The JAX preset's
+    ``run.cohort_layout="megabatch"`` is not a port option, and neither
+    are ``run.fuse_rounds`` and ``run.shape_buckets``: the sequential
+    engine gives the same result one round per call, and the port skips
+    a client's padded steps on the host (client/trainer.py)."""
+    return ExperimentConfig(
+        name="cifar10_fedavg_1000",
+        algorithm="fedavg",
+        model=ModelConfig(name="resnet18", num_classes=10),
+        data=DataConfig(
+            name="cifar10",
+            num_clients=1000,
+            partition="dirichlet",
+            dirichlet_alpha=0.5,
+            synthetic_train_size=50_000,
+            synthetic_test_size=2_000,
+            max_examples_per_client=128,
+        ),
+        client=ClientConfig(local_epochs=1, batch_size=64, lr=0.05),
+        server=ServerConfig(num_rounds=1000, cohort_size=64, eval_every=20),
+        run=RunConfig(compute_dtype="bfloat16", local_param_dtype="bfloat16"),
+    )
+
+
+def _femnist_fedprox_500() -> ExperimentConfig:
+    """FedProx (μ = 0.01), 500 clients, MobileNetV2 (width 1.0, 62
+    classes, the small-input stem) on FEMNIST: LEAF writers merged onto
+    clients by the ``natural`` partition, or a Dirichlet(0.3) split of
+    the synthetic stand-in; cohort 32, batch 32, lr 0.03, bf16 compute
+    and bf16 local params. The JAX preset's
+    ``run.cohort_layout="megabatch"`` is not a port option, and neither
+    are ``run.fuse_rounds`` and ``run.shape_buckets``: the port skips a
+    client's padded steps on the host (client/trainer.py), which is what
+    shape buckets buy on the TPU."""
+    return ExperimentConfig(
+        name="femnist_fedprox_500",
+        algorithm="fedprox",
+        model=ModelConfig(name="mobilenetv2", num_classes=62,
+                          kwargs={"width_mult": 1.0}),
+        data=DataConfig(
+            name="femnist",
+            num_clients=500,
+            partition="natural",
+            max_examples_per_client=256,
+        ),
+        client=ClientConfig(local_epochs=1, batch_size=32, lr=0.03,
+                            prox_mu=0.01),
+        server=ServerConfig(num_rounds=500, cohort_size=32, eval_every=10),
+        run=RunConfig(compute_dtype="bfloat16", local_param_dtype="bfloat16"),
+    )
+
+
 _NAMED = {
     "mnist_fedavg_2": _mnist_fedavg_2,
     "cifar10_fedavg_100": _cifar10_fedavg_100,
+    "cifar10_fedavg_1000": _cifar10_fedavg_1000,
     "cifar10_krum_byzantine": _cifar10_krum_byzantine,
+    "femnist_fedprox_500": _femnist_fedprox_500,
     "shakespeare_fedavg": _shakespeare_fedavg,
 }
 

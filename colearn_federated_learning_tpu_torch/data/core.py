@@ -1,7 +1,9 @@
-"""Dataset registry and loaders (MNIST, CIFAR-10, Shakespeare).
+"""Dataset registry and loaders (MNIST, CIFAR-10, FEMNIST, Shakespeare).
 
 Each loader first looks for real data files under ``data_dir``
-(keras-style ``mnist.npz``, the CIFAR-10 python pickles). When they are
+(keras-style ``mnist.npz``, the CIFAR-10 python pickles, LEAF's FEMNIST
+json under ``femnist/``, whose writers become the ``natural``
+partition's groups). When they are
 absent and ``synthetic_fallback`` is on, a deterministic, learnable
 synthetic stand-in of the same shapes, dtypes and class structure is
 generated instead; ``meta["source"]`` records which. The NumPy code is
@@ -30,7 +32,10 @@ import numpy as np
 
 from colearn_federated_learning_tpu_torch.config import DataConfig
 from colearn_federated_learning_tpu_torch.data import partition as partition_lib
-from colearn_federated_learning_tpu_torch.data.leaf import load_shakespeare_text
+from colearn_federated_learning_tpu_torch.data.leaf import (
+    load_femnist,
+    load_shakespeare_text,
+)
 from colearn_federated_learning_tpu_torch.utils.registry import Registry
 
 dataset_registry = Registry("dataset")
@@ -103,8 +108,10 @@ def _image_loader(name: str, shape, num_classes: int, real_fn):
         shp = tuple(shape)
         data_dir = os.path.expanduser(cfg.data_dir)
         real = real_fn(data_dir)
+        extra_meta = {}
         if real is not None:
-            tx, ty, ex, ey = real
+            # extra_meta: the loader's own (e.g. LEAF's natural_groups)
+            tx, ty, ex, ey, extra_meta = real
             source = "real"
             shp = tuple(tx.shape[1:])
         elif cfg.synthetic_fallback:
@@ -123,7 +130,7 @@ def _image_loader(name: str, shape, num_classes: int, real_fn):
             raise FileNotFoundError(
                 f"{name}: no data under {data_dir} and synthetic_fallback=False"
             )
-        meta = {"source": source, "input_shape": shp}
+        meta = {"source": source, "input_shape": shp, **extra_meta}
         return tx, ty, ex, ey, meta, num_classes, "classify"
 
     return load
@@ -136,7 +143,8 @@ def _try_mnist_real(data_dir: str):
     with np.load(path) as d:
         tx = d["x_train"].astype(np.uint8)[..., None]
         ex = d["x_test"].astype(np.uint8)[..., None]
-        return tx, d["y_train"].astype(np.int32), ex, d["y_test"].astype(np.int32)
+        return (tx, d["y_train"].astype(np.int32), ex,
+                d["y_test"].astype(np.int32), {})
 
 
 def _try_cifar10_real(data_dir: str):
@@ -153,13 +161,21 @@ def _try_cifar10_real(data_dir: str):
     xs, ys = zip(*[read(f"data_batch_{i}") for i in range(1, 6)])
     tx, ty = np.concatenate(xs), np.concatenate(ys)
     ex, ey = read("test_batch")
-    return tx, ty, ex, ey
+    return tx, ty, ex, ey, {}
+
+
+def _try_femnist_real(data_dir: str):
+    if not os.path.isdir(os.path.join(data_dir, "femnist")):
+        return None
+    return load_femnist(data_dir)
 
 
 dataset_registry.register("mnist")(
     _image_loader("mnist", (28, 28, 1), 10, _try_mnist_real))
 dataset_registry.register("cifar10")(
     _image_loader("cifar10", (32, 32, 3), 10, _try_cifar10_real))
+dataset_registry.register("femnist")(
+    _image_loader("femnist", (28, 28, 1), 62, _try_femnist_real))
 
 
 @dataset_registry.register("shakespeare")

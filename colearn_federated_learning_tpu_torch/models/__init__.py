@@ -1,4 +1,5 @@
-"""Model zoo of the port: ``resnet18``, ``lenet5`` and ``bert_tiny``.
+"""Model zoo of the port: ``resnet18``, ``lenet5``, ``mobilenetv2``
+(28×28×1 inputs) and ``bert_tiny``.
 
 :func:`build_model` returns a module on the ``meta`` device (shapes
 only); parameters live outside it as ``dict[str, Tensor]`` keyed by
@@ -14,12 +15,14 @@ from torch import nn
 from colearn_federated_learning_tpu_torch.models.bert import bert_tiny
 from colearn_federated_learning_tpu_torch.models.layers import init_params  # noqa: F401
 from colearn_federated_learning_tpu_torch.models.lenet import LeNet5
+from colearn_federated_learning_tpu_torch.models.mobilenet import MobileNetV2
 from colearn_federated_learning_tpu_torch.models.resnet import ResNet18
 from colearn_federated_learning_tpu_torch.utils.registry import Registry
 
 model_registry = Registry("model")
 model_registry.register("resnet18")(ResNet18)
 model_registry.register("lenet5")(LeNet5)
+model_registry.register("mobilenetv2")(MobileNetV2)
 model_registry.register("bert_tiny")(bert_tiny)
 
 

@@ -7,6 +7,8 @@ flax layer the JAX package uses:
   which pads a stride-2 3×3 conv on an even input by (0, 1), not (1, 1);
   uneven pads go through ``F.pad`` before the conv. Inputs and weights
   are cast to the layer's compute dtype, as flax's ``dtype=`` does.
+  ``groups`` is flax's ``feature_group_count`` (``groups = cin`` is a
+  depthwise conv, weight ``[cout, 1, k, k]``).
 - :class:`GroupNorm`: ε = 1e-6 (torch's default is 1e-5), statistics
   and the affine transform in f32 whatever the compute dtype, the
   result cast back to it.
@@ -47,13 +49,14 @@ def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
 class Conv(nn.Module):
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  padding: str = "SAME", bias: bool = False,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, groups: int = 1):
         super().__init__()
         if padding not in ("SAME", "VALID"):
             raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
         self.kernel, self.stride, self.padding = kernel, stride, padding
-        self.compute_dtype = compute_dtype
-        self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
+        self.compute_dtype, self.groups = compute_dtype, groups
+        self.weight = nn.Parameter(
+            torch.empty(cout, cin // groups, kernel, kernel))
         self.bias = nn.Parameter(torch.empty(cout)) if bias else None
 
     def forward(self, x):
@@ -67,7 +70,8 @@ class Conv(nn.Module):
             else:
                 x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
         bias = None if self.bias is None else self.bias.to(cd)
-        return F.conv2d(x.to(cd), self.weight.to(cd), bias, self.stride, pad)
+        return F.conv2d(x.to(cd), self.weight.to(cd), bias, self.stride, pad,
+                        groups=self.groups)
 
 
 class GroupNorm(nn.Module):

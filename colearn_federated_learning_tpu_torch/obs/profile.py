@@ -9,9 +9,11 @@ round, times ``--rounds`` rounds, then traces ``--rounds`` more with
 ``torch.profiler``. The CIFAR-10 configs (``cifar10_fedavg_100``,
 ``cifar10_krum_byzantine``) run on synthetic CIFAR-10 at its real
 50,000 / 1,000 cardinality with the fused server apply (their bench
-shape); ``shakespeare_fedavg`` runs as its preset is, on the synthetic
-corpus (``--set model.kwargs.attention=pallas`` routes its attention
-through the CUDA kernel). ``--set`` overrides any config field. It
+shape); ``cifar10_fedavg_1000`` (50,000 / 2,000 in its preset) and
+``femnist_fedprox_500`` (the synthetic FEMNIST stand-in) run with the
+fused server apply; ``shakespeare_fedavg`` runs as its preset is, on the
+synthetic corpus (``--set model.kwargs.attention=pallas`` routes its
+attention through the CUDA kernel). ``--set`` overrides any config field. It
 prints JSON lines: the host wall time per round with and without the
 profiler; the summed device kernel time and the device's busy and idle
 shares (kernel time over the wall time of the traced rounds, and over
@@ -47,6 +49,8 @@ _BENCH_SHAPE = {
     "cifar10_fedavg_100": {"data.synthetic_train_size": 50000,
                            "data.synthetic_test_size": 1000,
                            "server.fused_apply": True},
+    "cifar10_fedavg_1000": {"server.fused_apply": True},
+    "femnist_fedprox_500": {"server.fused_apply": True},
     "shakespeare_fedavg": {},
 }
 _BENCH_SHAPE["cifar10_krum_byzantine"] = _BENCH_SHAPE["cifar10_fedavg_100"]

@@ -15,7 +15,8 @@ next-token labels stay integer on the device.
 Host work per round is the NumPy cohort draw and index grid, pure in
 ``(seed, round)`` and identical to the JAX package's
 ``run.host_pipeline="numpy"`` path; the corpus and the eval batches
-move to the device once per run.
+move to the device once per run. Every round's record names the
+``algorithm``.
 
 Under ``attack.kind`` the compromised client set is drawn once from
 ``run.seed`` (server/attacks.py); ``label_flip`` poisons their labels
@@ -215,7 +216,7 @@ class Experiment:
             dt = time.perf_counter() - flush_t0
             rounds_per_sec = len(pending) / dt if dt > 0 else 0.0
             for j, (ridx, m) in enumerate(pending):
-                record = {"round": ridx + 1,
+                record = {"round": ridx + 1, "algorithm": cfg.algorithm,
                           "train_loss": float(losses[j]),
                           "examples": float(m.examples)}
                 byz = self._byz_masks.pop(ridx, None)

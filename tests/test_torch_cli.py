@@ -74,6 +74,11 @@ def test_cuda_default_raises_without_a_gpu(tmp_path, monkeypatch, capsys):
     (["--set", "bogus.section=1"], "unknown config path"),
     (["--set", "server.optimizer=fedadam"], "not supported by the port"),
     (["--set", "model.kwargs.depth=3"], "unknown model.kwargs"),
+    (["--set", "algorithm=fedprox"],
+     "algorithm='fedprox' requires client.prox_mu > 0"),
+    (["--set", "algorithm=scaffold"],
+     "algorithm='scaffold' is not supported by the port"),
+    (["--set", "client.lr_decay=0.99"], "unknown config path"),
 ])
 def test_config_errors_exit_2(tmp_path, capsys, argv, msg):
     rc = cli.main(["fit", "--config", "mnist_fedavg_2", "--out-dir",
@@ -93,8 +98,8 @@ def test_profile_needs_a_gpu(monkeypatch, capsys):
 def test_configs_lists_the_named_configs(capsys):
     assert cli.main(["configs"]) == 0
     assert capsys.readouterr().out.split() == [
-        "cifar10_fedavg_100", "cifar10_krum_byzantine", "mnist_fedavg_2",
-        "shakespeare_fedavg"]
+        "cifar10_fedavg_100", "cifar10_fedavg_1000", "cifar10_krum_byzantine",
+        "femnist_fedprox_500", "mnist_fedavg_2", "shakespeare_fedavg"]
 
 
 def test_shakespeare_fit_then_evaluate_reproduces_eval_loss(tmp_path,
@@ -140,7 +145,8 @@ def _leaf_fields(dc, prefix=""):
 
 @pytest.mark.parametrize("name", ["mnist_fedavg_2", "cifar10_fedavg_100",
                                   "cifar10_krum_byzantine",
-                                  "shakespeare_fedavg"])
+                                  "shakespeare_fedavg", "cifar10_fedavg_1000",
+                                  "femnist_fedprox_500"])
 def test_presets_match_the_jax_package(name):
     """Every field the port keeps has the JAX preset's value."""
     port = tcfg.resolve_config(name)

@@ -1,6 +1,9 @@
 """Host data path of the PyTorch port vs the JAX package: partitions,
-synthetic corpora, round shapes, index/mask grids, eval batches and
-cohort draws must be BITWISE equal for the same config and seed."""
+synthetic corpora, LEAF FEMNIST files, round shapes, index/mask grids,
+eval batches and cohort draws must be BITWISE equal for the same config
+and seed."""
+
+import json
 
 import numpy as np
 import pytest
@@ -115,3 +118,76 @@ def test_eval_batches_bitwise():
                     jloader.eval_batches(x, y, 8)):
         assert g.dtype == w.dtype
         np.testing.assert_array_equal(g, w)
+
+
+def test_femnist_synthetic_and_natural_partition_bitwise():
+    """femnist_fedprox_500's data: the synthetic 28×28×1, 62-class
+    stand-in (16,000 examples: 32 for each of the 500 clients) and its
+    ``natural`` partition, which falls back to Dirichlet(0.3) without
+    LEAF writer groups."""
+    jd, td = _data_cfgs("femnist", num_clients=500, partition="natural",
+                        max_examples_per_client=256, data_dir="/nonexistent")
+    jf = jcore.build_federated_data(jd, seed=0)
+    tf = tcore.build_federated_data(td, seed=0)
+    assert tf.train_x.shape == (16_000, 28, 28, 1) and tf.num_classes == 62
+    for a in ("train_x", "train_y", "test_x", "test_y"):
+        np.testing.assert_array_equal(getattr(tf, a), getattr(jf, a))
+        assert getattr(tf, a).dtype == getattr(jf, a).dtype
+    _same_shards(tf.client_indices, jf.client_indices)
+    assert tf.meta == jf.meta
+
+
+def _write_leaf_femnist(root):
+    """3 writers over two LEAF json files, a few 28×28 images each."""
+    rng = np.random.default_rng(11)
+    d = root / "femnist"
+    d.mkdir()
+    for fname, users in (("b.json", {"w2": 5}), ("a.json", {"w0": 4,
+                                                           "w1": 3})):
+        blob = {"users": list(users), "num_samples": list(users.values()),
+                "user_data": {u: {"x": rng.uniform(size=(n, 784)).round(3)
+                                  .tolist(),
+                                  "y": rng.integers(0, 62, n).tolist()}
+                              for u, n in users.items()}}
+        (d / fname).write_text(json.dumps(blob))
+
+
+def test_leaf_femnist_dir_loads_and_partitions_alike(tmp_path):
+    from colearn_federated_learning_tpu.data import leaf as jleaf
+    from colearn_federated_learning_tpu_torch.data import leaf as tleaf
+
+    _write_leaf_femnist(tmp_path)
+    got, want = tleaf.load_femnist(str(tmp_path)), jleaf.load_femnist(
+        str(tmp_path))
+    for g, w in zip(got[:4], want[:4]):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    _same_shards(got[4]["natural_groups"], want[4]["natural_groups"])
+    assert len(got[4]["natural_groups"]) == 3
+    assert [u for u, _ in tleaf.iter_leaf_clients(
+        str(tmp_path / "femnist"))] == ["w0", "w1", "w2"]
+    jd, td = _data_cfgs("femnist", num_clients=2, partition="natural",
+                        data_dir=str(tmp_path))
+    jf = jcore.build_federated_data(jd, seed=2)
+    tf = tcore.build_federated_data(td, seed=2)
+    assert tf.meta["source"] == jf.meta["source"] == "real"
+    _same_shards(tf.meta["natural_groups"], jf.meta["natural_groups"])
+    _same_shards(tf.client_indices, jf.client_indices)
+    np.testing.assert_array_equal(tf.train_x, jf.train_x)
+
+
+def test_cifar10_fedavg_1000_partition_and_cohorts_bitwise():
+    """cifar10_fedavg_1000's federation without its images: Dirichlet(0.5)
+    over a seeded 50,000-label array into 1000 clients, and the fixed-mode
+    cohorts of 64 for a few rounds."""
+    cfg = tcfg.resolve_config("cifar10_fedavg_1000")
+    labels = np.random.default_rng(0).integers(0, 10, 50_000)
+    ti, ji = {}, {}
+    _same_shards(
+        tpart.dirichlet_partition(labels, 1000, 10, 0.5, 0, info=ti),
+        jpart.dirichlet_partition(labels, 1000, 10, 0.5, 0, info=ji))
+    assert ti == ji
+    assert (cfg.data.num_clients, cfg.server.cohort_size) == (1000, 64)
+    js, ts = JSampler(1000, 64, seed=0), TSampler(1000, 64, seed=0)
+    for r in (0, 1, 2, 999):
+        np.testing.assert_array_equal(ts.sample(r), js.sample(r))

@@ -1,44 +1,33 @@
 """The PyTorch port stands alone: no file of the port package, and not
-chip_smoke.py, imports JAX, its libraries, or the JAX package."""
+chip_smoke.py, imports JAX, its libraries, or the JAX package.
 
-import ast
+The check runs once per file, spread over three test files by the groups
+of tests/torch_port_files.py: here chip_smoke.py, the package's top-level
+modules, ``client/`` and ``data/``; ``models/`` and ``utils/`` in
+tests/test_torch_imports_models.py; ``ops/``, ``parallel/``, ``server/``
+and ``obs/`` in tests/test_torch_imports_ops.py. The coverage case below
+holds that the groups take every file exactly once."""
+
+import collections
 import os
 
 import pytest
 import torch
 
+from tests.torch_port_files import (
+    GROUPS,
+    PORT,
+    check_no_jax_imports,
+    file_id,
+    group_files,
+    port_files,
+)
+
 torch.set_num_threads(1)
-
-_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_PORT = os.path.join(_ROOT, "colearn_federated_learning_tpu_torch")
-_FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "chex",
-              "colearn_federated_learning_tpu"}
-
-
-def _port_files():
-    files = [os.path.join(_ROOT, "chip_smoke.py")]
-    for dirpath, _, names in os.walk(_PORT):
-        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
-    return sorted(files)
-
-
-def _imported_roots(path):
-    tree = ast.parse(open(path).read(), filename=path)
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            for alias in node.names:
-                yield node.lineno, alias.name.split(".")[0]
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.lineno, (node.module or "").split(".")[0]
-        elif (isinstance(node, ast.Call)
-              and getattr(node.func, "id", getattr(node.func, "attr", ""))
-              in ("__import__", "import_module")
-              and node.args and isinstance(node.args[0], ast.Constant)):
-            yield node.lineno, str(node.args[0].value).split(".")[0]
 
 
 def test_port_has_the_expected_layout():
-    files = {os.path.relpath(f, _PORT) for f in _port_files()}
+    files = {os.path.relpath(f, PORT) for f in port_files()}
     for rel in ("config.py", "cli.py", "__main__.py", "data/core.py",
                 "data/loader.py", "data/partition.py", "models/resnet.py",
                 "models/lenet.py", "models/convert.py", "client/trainer.py",
@@ -48,15 +37,22 @@ def test_port_has_the_expected_layout():
                 "server/attacks.py", "utils/metrics.py",
                 "utils/checkpoint.py", "obs/profile.py", "data/leaf.py",
                 "models/bert.py", "ops/attention.py", "ops/ring_attention.py",
-                "ops/flash_attention.py", "ops/backends.py"):
+                "ops/flash_attention.py", "ops/backends.py",
+                "models/mobilenet.py"):
         assert rel in files, rel
     for cu in ("server_apply.cu", "reduce_apply.cu", "flash_attention.cu"):
-        assert os.path.isfile(os.path.join(_PORT, "ops", "csrc", cu))
+        assert os.path.isfile(os.path.join(PORT, "ops", "csrc", cu))
 
 
-@pytest.mark.parametrize("path", _port_files(),
-                         ids=lambda p: os.path.relpath(p, _ROOT))
+def test_import_check_groups_cover_every_file_once():
+    taken = collections.Counter(f for g in GROUPS for f in group_files(g))
+    assert sorted(taken) == port_files(), (
+        "port files in no group of tests/torch_port_files.py: "
+        f"{sorted(set(port_files()) - set(taken))}")
+    assert all(n == 1 for n in taken.values()), taken
+
+
+@pytest.mark.parametrize("path", group_files("entry_client_data"),
+                         ids=file_id)
 def test_no_jax_imports(path):
-    bad = [(line, mod) for line, mod in _imported_roots(path)
-           if mod in _FORBIDDEN]
-    assert not bad, f"{os.path.relpath(path, _ROOT)} imports {bad}"
+    check_no_jax_imports(path)

@@ -30,7 +30,9 @@ torch.set_num_threads(1)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [11_173_962, 1_000_003])
+# ResNet-18's length, MobileNetV2's (2 mod 4: the scalar tail runs) and
+# an odd one
+@pytest.mark.parametrize("n", [11_173_962, 1_000_003, 2_302_718])
 @pytest.mark.parametrize("beta", [0.0, 0.9])
 def test_kernel_matches_plain_on_card(n, beta):
     if not torch.cuda.is_available():

@@ -16,19 +16,14 @@ import torch
 from colearn_federated_learning_tpu.server.aggregation import (
     weighted_delta_mean as jweighted_delta_mean,
 )
-from colearn_federated_learning_tpu_torch import config as tcfg
-from colearn_federated_learning_tpu_torch.client.trainer import (
-    make_local_train_fn,
-)
-from colearn_federated_learning_tpu_torch.models import build_model
 from colearn_federated_learning_tpu_torch.models.convert import flax_to_torch
 from colearn_federated_learning_tpu_torch.server.aggregation import (
     weighted_delta_mean,
 )
 from colearn_federated_learning_tpu_torch.utils.trees import ParamLayout
 from tests.torch_parity import (
+    check_padded_step_is_noop,
     jax_round,
-    model_params,
     port_round,
     round_inputs,
 )
@@ -106,28 +101,7 @@ def test_resnet_round_matches_jax():
 def test_padded_step_is_exact_noop(local_dtype):
     """Appending all-zero-mask steps changes nothing, bit for bit; the
     real steps do move the params."""
-    model = build_model("lenet5", 10)
-    fp = model_params("lenet5", seed=1)
-    tp = flax_to_torch(fp, model)
-    layout = ParamLayout.from_params(tp)
-    flat = layout.flatten(tp)
-    rng = np.random.default_rng(0)
-    x = torch.from_numpy(rng.integers(0, 256, (40, 28, 28, 1)).astype(np.uint8))
-    y = torch.from_numpy(rng.integers(0, 10, 40)).long()
-    idx = torch.from_numpy(rng.integers(0, 40, (4, 8)))
-    mask = torch.ones(4, 8)
-    mask[1, 5:] = 0.0
-    train = make_local_train_fn(model, tcfg.ClientConfig(batch_size=8),
-                                local_dtype)
-    base, base_m = train(flat, layout, x, y, idx[:2], mask[:2],
-                         mask[:2].sum(-1).numpy())
-    mask[2:] = 0.0
-    padded, pad_m = train(flat, layout, x, y, idx, mask, mask.sum(-1).numpy())
-    assert base.dtype == local_dtype
-    assert not torch.equal(base.float(), flat)
-    assert torch.equal(padded, base)
-    assert torch.equal(pad_m.loss, base_m.loss)
-    assert pad_m.examples == base_m.examples == 13.0
+    check_padded_step_is_noop(local_dtype)
 
 
 def test_weighted_delta_mean_matches_jax():

@@ -33,16 +33,18 @@ torch.set_num_threads(1)
 _BOUND = 1.25
 
 
-def bf16_distances(name, dataset, cohort_size, cap, server, lr=LR, **kw):
+def bf16_distances(name, dataset, cohort_size, cap, server, lr=LR,
+                   client=None, **kw):
     """(‖Δ_port,bf16 − Δ_jax,f32‖, ‖Δ_jax,bf16 − Δ_jax,f32‖), relative to
-    ‖Δ_jax,f32‖."""
+    ‖Δ_jax,f32‖. ``client``: extra ClientConfig fields, as
+    tests/torch_parity.py takes them; ``kw``: model kwargs."""
     start = flax_to_torch(model_params(name, 7, **kw))
     args = (name, dataset, cohort_size, cap, server)
-    want = flat_delta(flax_to_torch(jax_round(*args, lr=lr, **kw)[0]), start)
+    kw = dict(kw, lr=lr, client=client)
+    want = flat_delta(flax_to_torch(jax_round(*args, **kw)[0]), start)
     ref = flat_delta(flax_to_torch(jax_round(
-        *args, lr=lr, local_dtype="bfloat16", **kw)[0]), start)
-    flat, layout, _, _ = port_round(name, dataset, cohort_size, cap, server,
-                                    lr=lr, local_dtype=torch.bfloat16, **kw)
+        *args, local_dtype="bfloat16", **kw)[0]), start)
+    flat, layout, _, _ = port_round(*args, local_dtype=torch.bfloat16, **kw)
     got = flat_delta(layout.views(flat), start)
     scale = np.linalg.norm(want)
     return (np.linalg.norm(got - want) / scale,

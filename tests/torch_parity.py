@@ -1,7 +1,8 @@
 """Shared helpers of the port's parity tests (tests/test_torch_*.py):
 numpy-made params of a JAX model, one round's inputs, the JAX
-package's sequential round oracle, and the attention cases held against
-its Pallas ``flash_attention`` in interpret mode.
+package's sequential round oracle, the padded-step check of the local
+trainer, and the attention cases held against its Pallas
+``flash_attention`` in interpret mode.
 
 The oracle's cost is compilation, so what is compiled is built once per
 process and shared by every case that can share it:
@@ -41,6 +42,9 @@ from colearn_federated_learning_tpu.server.aggregation import (
     make_server_update_fn as jserver,
 )
 from colearn_federated_learning_tpu_torch import config as tcfg
+from colearn_federated_learning_tpu_torch.client.trainer import (
+    make_local_train_fn,
+)
 from colearn_federated_learning_tpu_torch.models import build_model
 from colearn_federated_learning_tpu_torch.models.convert import flax_to_torch
 from colearn_federated_learning_tpu_torch.ops import flash_attention as fa
@@ -61,7 +65,8 @@ from colearn_federated_learning_tpu_torch.server.aggregation import (
 )
 from colearn_federated_learning_tpu_torch.utils.trees import ParamLayout
 
-NUM_CLASSES = {"lenet5": 10, "resnet18": 10, "bert_tiny": 0}
+NUM_CLASSES = {"lenet5": 10, "resnet18": 10, "bert_tiny": 0,
+               "mobilenetv2": 62}
 BATCH, LR = 8, 0.05
 
 
@@ -72,7 +77,8 @@ def _key(kw):
 def _input_spec(name, kw):
     if name == "bert_tiny":
         return (kw.get("seq_len", 80),), jnp.int32
-    return {"lenet5": (28, 28, 1), "resnet18": (32, 32, 3)}[name], jnp.float32
+    return {"lenet5": (28, 28, 1), "resnet18": (32, 32, 3),
+            "mobilenetv2": (28, 28, 1)}[name], jnp.float32
 
 
 @functools.lru_cache(maxsize=None)
@@ -171,10 +177,12 @@ def _shared_local_train_fn(model, client_cfg, dp_cfg, task, **kw):
     return _LOCAL_TRAIN[key]
 
 
-def jax_round_fn(model, task, server_update, lr=LR, **kw):
+def jax_round_fn(model, task, server_update, lr=LR, client=None, **kw):
     """The JAX package's ``make_sequential_round_fn`` for ``model``, with
-    the local step shared across calls (see the module doc)."""
-    cc = jcfg.ClientConfig(local_epochs=1, batch_size=BATCH, lr=lr)
+    the local step shared across calls (see the module doc).
+    ``client``: extra ClientConfig fields (momentum, prox_mu, ...)."""
+    cc = jcfg.ClientConfig(local_epochs=1, batch_size=BATCH, lr=lr,
+                           **(client or {}))
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jengine, "make_local_train_fn", _shared_local_train_fn)
         return jengine.make_sequential_round_fn(
@@ -187,14 +195,14 @@ def _task(dataset):
 
 @functools.lru_cache(maxsize=None)
 def _jax_round(name, dataset, cohort_size, cap, server, engine, model_kw,
-               lr, local_dtype, seed):
+               lr, local_dtype, seed, client):
     model_kw, server, engine = dict(model_kw), dict(server), dict(engine)
     fed, idx, mask, n_ex = round_inputs(dataset, cohort_size, cap, **model_kw)
     jm = jax_model(name, **model_kw)
     fp = model_params(name, seed, **model_kw)
     jinit, jupdate = jax_server(**server)
     round_fn = jax_round_fn(
-        jm, _task(dataset), jupdate, lr=lr,
+        jm, _task(dataset), jupdate, lr=lr, client=dict(client),
         local_dtype=jnp.bfloat16 if local_dtype == "bfloat16" else None,
         fused_apply=server.get("fused_apply", False), **engine)
     jopt = jinit(fp)
@@ -217,18 +225,20 @@ def engine_byz(cohort_size):
 
 
 def jax_round(name, dataset, cohort_size, cap, server=None, engine=None,
-              lr=LR, local_dtype=None, seed=7, **model_kw):
+              lr=LR, local_dtype=None, seed=7, client=None, **model_kw):
     """One oracle round from :func:`model_params`: ``(params′, opt′,
     train loss, examples)`` as numpy, cached by every argument.
     ``server``: ServerConfig fields; ``engine``: extra knobs of the round
-    fn (aggregator, attack, ...)."""
+    fn (aggregator, attack, ...); ``client``: extra ClientConfig
+    fields."""
     return _jax_round(name, dataset, cohort_size, cap, _key(server or {}),
                       _key(engine or {}), _key(model_kw), lr, local_dtype,
-                      seed)
+                      seed, _key(client or {}))
 
 
 def port_round(name, dataset, cohort_size, cap, server=None, engine=None,
-               lr=LR, local_dtype=None, seed=7, byz=None, **model_kw):
+               lr=LR, local_dtype=None, seed=7, byz=None, client=None,
+               **model_kw):
     """The same round through the port from the same params: ``(flat
     params′, layout, opt′, RoundMetrics)``."""
     server, engine = dict(server or {}), dict(engine or {})
@@ -242,13 +252,42 @@ def port_round(name, dataset, cohort_size, cap, server=None, engine=None,
     if server.get("optimizer") == "fedavgm":
         topt["opt"]["trace"] += 0.01
     tround = make_sequential_round_fn(
-        model, tcfg.ClientConfig(local_epochs=1, batch_size=BATCH, lr=lr),
+        model, tcfg.ClientConfig(local_epochs=1, batch_size=BATCH, lr=lr,
+                                  **(client or {})),
         tupdate, layout, local_dtype, task=_task(dataset), **engine)
     topt2, tmet = tround(flat, topt, torch.from_numpy(fed.train_x),
                          torch.from_numpy(fed.train_y).long(),
                          torch.from_numpy(idx.astype(np.int64)),
                          torch.from_numpy(mask), n_ex, mask.sum(-1), byz)
     return flat, layout, topt2, tmet
+
+
+def check_padded_step_is_noop(local_dtype, **client):
+    """Appending all-zero-mask steps to a LeNet client's grid changes
+    nothing, bit for bit, under the ClientConfig fields ``client``; the
+    real steps do move the params."""
+    model = build_model("lenet5", 10)
+    fp = model_params("lenet5", seed=1)
+    tp = flax_to_torch(fp, model)
+    layout = ParamLayout.from_params(tp)
+    flat = layout.flatten(tp)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.integers(0, 256, (40, 28, 28, 1)).astype(np.uint8))
+    y = torch.from_numpy(rng.integers(0, 10, 40)).long()
+    idx = torch.from_numpy(rng.integers(0, 40, (4, 8)))
+    mask = torch.ones(4, 8)
+    mask[1, 5:] = 0.0
+    train = make_local_train_fn(
+        model, tcfg.ClientConfig(batch_size=8, **client), local_dtype)
+    base, base_m = train(flat, layout, x, y, idx[:2], mask[:2],
+                         mask[:2].sum(-1).numpy())
+    mask[2:] = 0.0
+    padded, pad_m = train(flat, layout, x, y, idx, mask, mask.sum(-1).numpy())
+    assert base.dtype == local_dtype
+    assert not torch.equal(base.float(), flat)
+    assert torch.equal(padded, base)
+    assert torch.equal(pad_m.loss, base_m.loss)
+    assert pad_m.examples == base_m.examples == 13.0
 
 
 def flat_delta(params, start):
