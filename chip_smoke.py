@@ -19,8 +19,9 @@ of which fails the run:
    one-hot row and an all-zero row, within the same tolerance;
 4. hold ``flash_attention`` against its plain version, causal and not,
    at (B·H, T, hd) = (32, 80, 64) (the BERT-tiny path's shape), at ViT's
-   ragged T = 197 (hd 64), at T = 50 and 48 with hd 16 and 128 and at
-   T = 50 with hd 32, in f32 within 2e-5 abs + 2e-5 rel and in bf16
+   ragged T = 197 (hd 64), at T = 50 and 48 with hd 16 and 128, at
+   T = 50 with hd 32 and at ViT-B/16's eval shape (768, 197, 64), in f32
+   within 2e-5 abs + 2e-5 rel and in bf16
    within one bf16 ulp of the plain output plus 2e-5 (both compute in
    f32 and round once; the 2e-5 covers outputs near zero, where the f32
    sums cancel and the two orders of summation differ by more than a
@@ -29,10 +30,11 @@ of which fails the run:
 5. time each kernel, its plain version and the library calls that
    compute the same (or part of the same) function, beside the card's
    bound for the bytes the pass must move and the operations it does
-   (``flash_attention``: bf16, causal, at the path's shape, and its f32
-   branch, beside ``scaled_dot_product_attention(..., is_causal=True)``
-   on the same inputs, as device time with the host held off, since at
-   these sizes a call costs the host more than the card;
+   (``flash_attention``: each branch, causal, at the path's shape, and
+   the f32 branch also non-causal at ViT's eval shape, beside
+   ``scaled_dot_product_attention`` on the same inputs, as device time
+   with the host held off, since at the path's size a call costs the
+   host more than the card;
    ``fused_delta_apply`` also at MobileNetV2's length beside
    ``torch.add``, with the L2 cold before each call, as the path's one
    call a round finds it);
@@ -51,17 +53,24 @@ of which fails the run:
    record; then, on one round's stack, the fused route (Krum's one-hot
    row through the kernel) and the unfused route (``robust_reduce`` +
    the plain apply) must agree within 1e-6;
-8. drive the third path — ``fit`` of ``shakespeare_fedavg`` (BERT-tiny
+8. drive both CIFAR-10 paths again for 2 rounds each under
+   ``server.optimizer=fedavgm`` (server momentum β = 0.9) and check
+   finite losses, one launch a round of the momentum branch of each
+   path's kernel and none of the others, and on the Krum path the fused
+   route against the unfused one, momentum included, within 1e-6;
+9. drive the third path — ``fit`` of ``shakespeare_fedavg`` (BERT-tiny
    at its published geometry, 128 natural clients of the synthetic
-   Markov-chain corpus, cohort 32, bf16 local training) with
+   Markov-chain corpus, cohort 32, bf16 compute) with
    ``model.kwargs.attention=pallas`` for 3 rounds, evaluating after the
-   third — and check finite losses, params that moved, a
+   third — and check finite losses, params that moved, a bf16
    ``flash_attention`` launch for each layer of every local step run
    and every eval batch (counted from the round's masks and eval's
    batches), and no launch of the two apply kernels; it also prints the
    first round's train loss under ``attention=full`` from the same
-   init, beside the ``pallas`` one (not gated);
-9. drive the fourth path — ``fit`` of ``femnist_fedprox_500`` (FedProx,
+   init, beside the ``pallas`` one (not gated); then the same path at
+   f32 compute and local params for 2 rounds, whose launches must all
+   be of the f32 branch;
+10. drive the fourth path — ``fit`` of ``femnist_fedprox_500`` (FedProx,
    μ = 0.01, of MobileNetV2 at width 1.0 over 500 synthetic FEMNIST
    clients, cohort 32, bf16 local training, the fused server apply) for
    12 rounds, evaluating after the last — and check finite losses, one
@@ -70,7 +79,7 @@ of which fails the run:
    below the untrained model's and below ln 62 (a uniform guess over the
    62 classes, which an untrained model that only calibrated its logits
    would reach), and eval accuracy above chance (1/62);
-10. drive the fifth path — ``fit`` of ``cifar10_fedavg_1000`` (ResNet-18
+11. drive the fifth path — ``fit`` of ``cifar10_fedavg_1000`` (ResNet-18
    at full width, 1000 Dirichlet clients over synthetic CIFAR-10's
    50,000 examples, cohort 64, bf16 local training, the fused server
    apply) for 2 rounds — and check finite losses and one
@@ -106,16 +115,27 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 ROUNDS = 3
 FEMNIST_ROUNDS = 12
+SHORT_ROUNDS = 2  # the fedavgm paths, shakespeare in f32, cifar10_fedavg_1000
 DATA_SETS = ("data.synthetic_train_size=50000",
              "data.synthetic_test_size=1000")
 PALLAS = "colearn_federated_learning_tpu/ops/pallas_apply.py"
 PALLAS_ATTENTION = "colearn_federated_learning_tpu/ops/pallas_attention.py"
 CSRC = "colearn_federated_learning_tpu_torch/ops/csrc/"
-# flash_attention's checks: (B·H, T, hd); the first is the path's shape
+# flash_attention's checks: (B·H, T, hd); the first is the path's shape,
+# the last ViT-B/16's eval (batch 64 x 12 heads, 197 tokens, non-causal)
+VIT_SHAPE = (768, 197, 64)
 ATTN_SHAPES = ((32, 80, 64), (4, 197, 64), (6, 50, 16), (6, 48, 16),
-               (3, 50, 128), (3, 48, 128), (5, 50, 32))
+               (3, 50, 128), (3, 48, 128), (5, 50, 32), VIT_SHAPE)
 ATTN_ATOL = ATTN_RTOL = 2e-5
 BERT_HEADS = 2
+VIT_HEADS = 12
+# each kernel's count of its second branch, beside ``launches``
+BRANCH_COUNTS = {"fused_delta_apply": "momentum_launches",
+                 "fused_reduce_apply": "momentum_launches",
+                 "flash_attention": "f32_launches"}
+FEDAVGM = "server.optimizer=fedavgm"
+F32_SETS = ("run.compute_dtype=float32", "run.local_param_dtype=float32")
+SHAKESPEARE_F32 = "shakespeare_fedavg (float32)"
 
 
 def emit(obj) -> None:
@@ -496,65 +516,71 @@ def flash_kernel_phase(fa) -> dict:
           "max_abs_err": errs, "bf16_max_err_over_tolerance": ulp_ratio,
           "grad_max_abs_err": grad_err})
 
-    bh, t, hd = ATTN_SHAPES[0]
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    q32, k32, v32 = (torch.randn(bh, t, hd, device="cuda", generator=gen)
-                     for _ in range(3))
-    q, k, v = (x.to(torch.bfloat16) for x in (q32, k32, v32))
-    # scaled_dot_product_attention on the same tensors as [B, H, T, hd]
-    q4, k4, v4 = (x.view(bh // BERT_HEADS, BERT_HEADS, t, hd)
-                  for x in (q, k, v))
+    path = attention_timing(fa, ATTN_SHAPES[0], torch.bfloat16, True,
+                            BERT_HEADS)
     one = torch.zeros(1, device="cuda")
-    # device times with the host out of the way (device_ms): at this
-    # size one call costs the host more than the card
-    kernel = device_ms(lambda: fa.attention_forward(q, k, v, True))
-    f32 = device_ms(lambda: fa.attention_forward(q32, k32, v32, True))
-    f32_library = device_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            *(x.view(bh // BERT_HEADS, BERT_HEADS, t, hd)
-              for x in (q32, k32, v32)), is_causal=True))
+    floor = device_ms(lambda: one.add_(1.0))
+    rows = {
+        "bf16": dict(path, max_abs_err=bf16_err,
+                     # a one-element kernel: what any launch costs here
+                     launch_floor_ms=floor["ms"],
+                     launch_floor_back_to_back_ms=floor["back_to_back_ms"]),
+        # the f32 branch at the path's shape, and at ViT's eval shape
+        "f32": dict(attention_timing(fa, ATTN_SHAPES[0], torch.float32,
+                                     True, BERT_HEADS),
+                    max_abs_err=f32_err,
+                    vit=attention_timing(fa, VIT_SHAPE, torch.float32, False,
+                                         VIT_HEADS)),
+    }
+    emit({"phase": "flash_kernel_timing", **rows})
+    return rows
+
+
+def attention_timing(fa, shape, dtype, causal: bool, heads: int) -> dict:
+    """Device times of the kernel, its plain version and
+    ``scaled_dot_product_attention`` on the same random ``shape`` inputs,
+    with the host held off (``device_ms``): at the path's size one call
+    costs the host more than the card."""
+    import torch
+
+    bh, t, hd = shape
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
+               for _ in range(3))
+    # scaled_dot_product_attention on the same tensors as [B, H, T, hd]
+    bhtd = (bh // heads, heads, t, hd)
+    q4, k4, v4 = (x.view(bhtd) for x in (q, k, v))
+    kernel = device_ms(lambda: fa.attention_forward(q, k, v, causal))
     # the plain version launches ~30 kernels a call: 20 calls stay below
     # the device's queue of pending launches, past which the host waits
     # for the sleeping card and the enqueue can never be hidden
-    plain = device_ms(lambda: fa.attention_reference(q, k, v, True),
+    plain = device_ms(lambda: fa.attention_reference(q, k, v, causal),
                       iters=20)
     library = device_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True))
-    floor = device_ms(lambda: one.add_(1.0))
-    row = {
-        "max_abs_err": max(f32_err, bf16_err, grad_err),
-        "max_abs_err_f32": f32_err, "max_abs_err_bf16": bf16_err,
-        "ms": kernel["ms"], "plain_ms": plain["ms"],
-        "library_ms": library["ms"],
-        "library_call": "torch.nn.functional.scaled_dot_product_attention"
-                        "(q, k, v, is_causal=True) on [16, 2, 80, 64] bf16",
-        # the f32 branch (eval on the server's f32 params), same shape
-        "f32_ms": f32["ms"], "f32_library_ms": f32_library["ms"],
-        "back_to_back_ms": {"kernel": kernel["back_to_back_ms"],
-                            "plain": plain["back_to_back_ms"],
-                            "library": library["back_to_back_ms"]},
-        # a one-element kernel: what any launch costs on this card
-        "launch_floor_ms": floor["ms"],
-        "launch_floor_back_to_back_ms": floor["back_to_back_ms"],
-        **attention_bound(bh, t, hd, 2, causal=True),
-    }
-    emit({"phase": "flash_kernel_timing", "shape": [bh, t, hd],
-          "dtype": "bfloat16", "causal": True, **row})
-    return row
+            q4, k4, v4, is_causal=causal))
+    return {"shape": list(shape), "dtype": str(dtype)[6:], "causal": causal,
+            "ms": kernel["ms"], "plain_ms": plain["ms"],
+            "library_ms": library["ms"],
+            "library_call": "torch.nn.functional.scaled_dot_product_"
+                            f"attention(q, k, v, is_causal={causal}) on "
+                            f"{list(bhtd)} {str(dtype)[6:]}",
+            "back_to_back_ms": {"kernel": kernel["back_to_back_ms"],
+                                "plain": plain["back_to_back_ms"],
+                                "library": library["back_to_back_ms"]},
+            **attention_bound(bh, t, hd, q.element_size(), causal)}
 
 
 def reset_counts(kernels) -> None:
     for fn in kernels:
         fn.launches = 0
-        if hasattr(fn, "momentum_launches"):
-            fn.momentum_launches = 0
+        setattr(fn, BRANCH_COUNTS[fn.__name__], 0)
 
 
 def read_counts(kernels) -> dict:
     return {fn.__name__: {"launches": fn.launches,
-                          "momentum_launches": getattr(
-                              fn, "momentum_launches", 0)}
+                          BRANCH_COUNTS[fn.__name__]: getattr(
+                              fn, BRANCH_COUNTS[fn.__name__])}
             for fn in kernels}
 
 
@@ -620,16 +646,17 @@ def steady_round_s(exp, state, first: int = ROUNDS) -> float:
     return min(steady)
 
 
-def only_delta_apply(counts, rounds: int, path: str) -> None:
-    """One ``fused_delta_apply`` launch a round (no momentum) and no
-    launch of the other kernels, or raise."""
-    if (counts["fused_delta_apply"]["launches"] != rounds
-            or counts["fused_delta_apply"]["momentum_launches"]
-            or counts["fused_reduce_apply"]["launches"]
-            or counts["flash_attention"]["launches"]):
+def only_kernel(counts, name: str, rounds: int, path: str,
+                momentum: bool = False) -> None:
+    """One launch a round of ``name``'s momentum branch (``momentum``) or
+    of its other branch, and no launch of any other kernel, or raise."""
+    want = {fn: {"launches": 0, branch: 0}
+            for fn, branch in BRANCH_COUNTS.items()}
+    want[name] = {"launches": rounds,
+                  BRANCH_COUNTS[name]: rounds * momentum}
+    if counts != want:
         raise AssertionError(f"the {path} path launched {counts} in "
-                             f"{rounds} rounds (want one fused_delta_apply "
-                             f"a round and no other kernel)")
+                             f"{rounds} rounds (want {want})")
 
 
 def path_numbers(exp, run, setup_s: float, round_s: float) -> dict:
@@ -651,7 +678,7 @@ def fedavg_path_phase(kernels) -> dict:
     exp, setup_s = make_experiment("cifar10_fedavg_100", sets, out_dir)
     run = fit_and_check(exp, kernels)
     counts = run["counts"]
-    only_delta_apply(counts, ROUNDS, "cifar10_fedavg_100")
+    only_kernel(counts, "fused_delta_apply", ROUNDS, "cifar10_fedavg_100")
     state = run["state"]
     final = exp.evaluate(state["params"])
     if not math.isfinite(final["eval_loss"]):
@@ -681,6 +708,37 @@ def fedavg_path_phase(kernels) -> dict:
 
 
 def krum_path_phase(kernels, reduce_apply, server_apply) -> dict:
+    sets = DATA_SETS + (f"server.num_rounds={ROUNDS}",
+                        "server.fused_apply=true")
+    exp, setup_s = make_experiment("cifar10_krum_byzantine", sets, "")
+    run = fit_and_check(exp, kernels)
+    counts = run["counts"]
+    only_kernel(counts, "fused_reduce_apply", ROUNDS,
+                "cifar10_krum_byzantine")
+    records = run["records"]
+    if any("byzantine_count" not in r for r in records):
+        raise AssertionError(f"byzantine_count missing from {records}")
+    state = run["state"]
+    # before the route check, whose second stack is not the path's
+    numbers = path_numbers(exp, run, setup_s, steady_round_s(exp, state))
+
+    route = krum_route_check(exp, state, reduce_apply, server_apply)
+    emit({"phase": "krum_path", "config": "cifar10_krum_byzantine",
+          "rounds": ROUNDS, "launches": counts, "train_loss": run["losses"],
+          "byzantine_count": [r["byzantine_count"] for r in records],
+          "krum_selected_byzantine": [r.get("krum_selected_byzantine")
+                                      for r in records],
+          "compromised_winners": sum(r.get("krum_selected_byzantine", 0)
+                                     for r in records),
+          "n_compromised": int(len(exp.compromised)), **route, **numbers})
+    return counts
+
+
+def krum_route_check(exp, state, reduce_apply, server_apply) -> dict:
+    """On one more round's stack, the fused route (Krum's one-hot row
+    through the kernel) against the unfused one (``robust_reduce`` + the
+    plain apply), with the server momentum under ``fedavgm``: Δ̄, the
+    params and the momentum must agree within 1e-6."""
     import numpy as np
     import torch
 
@@ -690,27 +748,10 @@ def krum_path_phase(kernels, reduce_apply, server_apply) -> dict:
         robust_reduce,
     )
 
-    sets = DATA_SETS + (f"server.num_rounds={ROUNDS}",
-                        "server.fused_apply=true")
-    exp, setup_s = make_experiment("cifar10_krum_byzantine", sets, "")
-    run = fit_and_check(exp, kernels)
-    counts = run["counts"]
-    if (counts["fused_reduce_apply"]["launches"] != ROUNDS
-            or counts["fused_delta_apply"]["launches"]
-            or counts["flash_attention"]["launches"]):
-        raise AssertionError(f"the Krum path launched {counts} in {ROUNDS} "
-                             f"rounds (want one fused_reduce_apply a round "
-                             f"and no other kernel)")
-    records = run["records"]
-    if any("byzantine_count" not in r for r in records):
-        raise AssertionError(f"byzantine_count missing from {records}")
-    state = run["state"]
-    # before the route check, whose second stack is not the path's
-    numbers = path_numbers(exp, run, setup_s, steady_round_s(exp, state))
-
-    # the fused and the unfused route on one round's stack
     params = state["params"]
+    trace = state["server_opt_state"]["opt"].get("trace")
     cfg = exp.cfg
+    beta = cfg.server.server_momentum if trace is not None else 0.0
     cohort, idx, mask, n_ex, step_counts = exp._round_inputs(ROUNDS + 2)
     byz = np.isin(np.asarray(cohort), exp.compromised).astype(np.float32)
     n_ex = np.asarray(n_ex, np.float32)
@@ -720,54 +761,92 @@ def krum_path_phase(kernels, reduce_apply, server_apply) -> dict:
     f = cfg.server.krum_byzantine
     winner, m = krum_select(stack, part, f, exp.layout)
     p_fused = params.clone()
+    m_fused = None if trace is None else trace.clone()
     _, _, d_fused = reduce_apply.fused_reduce_apply(
         stack, krum_weights(winner, m, stack.shape[0]), p_fused,
-        cfg.server.server_lr)
+        cfg.server.server_lr, m_fused, beta)
     d_unfused = robust_reduce(stack, part, "krum", exp.layout,
                               byzantine_f=f)
-    p_unfused, _ = server_apply.delta_apply_reference(
-        params, d_unfused, cfg.server.server_lr)
+    p_unfused, m_unfused = server_apply.delta_apply_reference(
+        params, d_unfused, cfg.server.server_lr, trace, beta)
     torch.cuda.synchronize()
-    route_err = assert_close([(d_fused, d_unfused), (p_fused, p_unfused)],
-                             "fused vs unfused Krum route")
-    emit({"phase": "krum_path", "config": "cifar10_krum_byzantine",
-          "rounds": ROUNDS, "launches": counts, "train_loss": run["losses"],
-          "byzantine_count": [r["byzantine_count"] for r in records],
-          "krum_selected_byzantine": [r.get("krum_selected_byzantine")
-                                      for r in records],
-          "compromised_winners": sum(r.get("krum_selected_byzantine", 0)
-                                     for r in records),
-          "n_compromised": int(len(exp.compromised)),
-          "fused_vs_unfused_max_abs_err": route_err,
-          "route_check_winner_slot": int(winner),
-          "route_check_winner_byzantine": int(byz[int(winner)]),
-          "stack_gb": round(stack.numel() * 4 / 1e9, 3), **numbers})
+    pairs = [(d_fused, d_unfused), (p_fused, p_unfused)]
+    if trace is not None:
+        pairs.append((m_fused, m_unfused))
+    return {"fused_vs_unfused_max_abs_err": assert_close(
+                pairs, "fused vs unfused Krum route"),
+            "route_check_winner_slot": int(winner),
+            "route_check_winner_byzantine": int(byz[int(winner)]),
+            "stack_gb": round(stack.numel() * 4 / 1e9, 3)}
+
+
+def fedavgm_path_phase(kernels, reduce_apply, server_apply) -> dict:
+    """The two CIFAR-10 paths for SHORT_ROUNDS rounds under
+    ``server.optimizer=fedavgm`` (β = ``server.server_momentum``): one
+    launch a round of the momentum branch of each path's kernel and none
+    of the others, finite losses, and on the Krum path the fused route
+    against the unfused one, momentum included."""
+    counts = {}
+    for config, kernel in (("cifar10_fedavg_100", "fused_delta_apply"),
+                           ("cifar10_krum_byzantine", "fused_reduce_apply")):
+        sets = DATA_SETS + (f"server.num_rounds={SHORT_ROUNDS}",
+                            "server.fused_apply=true", FEDAVGM)
+        exp, setup_s = make_experiment(config, sets, "")
+        run = fit_and_check(exp, kernels, SHORT_ROUNDS)
+        path = f"{config} ({FEDAVGM})"
+        only_kernel(run["counts"], kernel, SHORT_ROUNDS, path, momentum=True)
+        route = (krum_route_check(exp, run["state"], reduce_apply,
+                                  server_apply)
+                 if kernel == "fused_reduce_apply" else {})
+        emit({"phase": "fedavgm_path", "config": config,
+              "server_momentum": exp.cfg.server.server_momentum,
+              "rounds": SHORT_ROUNDS, "launches": run["counts"],
+              "train_loss": run["losses"], "setup_s": round(setup_s, 3),
+              "fit_s": round(run["fit_s"], 3), **route})
+        counts[path] = run["counts"]
+        del exp, run
     return counts
 
 
-def shakespeare_path_phase(kernels) -> dict:
-    sets = (f"server.num_rounds={ROUNDS}", f"server.eval_every={ROUNDS}",
-            "model.kwargs.attention=pallas")
+def shakespeare_path_phase(kernels, f32: bool = False) -> dict:
+    """``shakespeare_fedavg`` under ``attention=pallas``, eval after the
+    last round: at its preset's bf16 compute for ROUNDS rounds, which
+    runs the kernel's bf16 branch in local training and eval alike, or
+    (``f32``) at f32 compute and local params for SHORT_ROUNDS rounds,
+    which runs its f32 branch."""
+    rounds = SHORT_ROUNDS if f32 else ROUNDS
+    sets = (f"server.num_rounds={rounds}", f"server.eval_every={rounds}",
+            "model.kwargs.attention=pallas") + (F32_SETS if f32 else ())
     exp, setup_s = make_experiment("shakespeare_fedavg", sets, "")
-    run = fit_and_check(exp, kernels)
+    run = fit_and_check(exp, kernels, rounds)
     counts = run["counts"]
     # one launch per layer for every local step run (a step whose mask is
-    # all zero is skipped) and for every eval batch (eval after round 3)
+    # all zero is skipped) and for every eval batch, all of the branch of
+    # the compute dtype
     steps_run = sum(int((exp._round_inputs(r)[4] > 0).sum())
-                    for r in range(ROUNDS))
+                    for r in range(rounds))
     eval_batches = int(exp._eval_data[0].shape[0])
     layers = exp.model.layers
     want = layers * (steps_run + eval_batches)
-    if (counts["flash_attention"]["launches"] != want
+    if (counts["flash_attention"] != {"launches": want,
+                                      "f32_launches": want * f32}
             or counts["fused_delta_apply"]["launches"]
             or counts["fused_reduce_apply"]["launches"]):
         raise AssertionError(
             f"the shakespeare path launched {counts}; want {want} "
-            f"flash_attention launches ({layers} layers x ({steps_run} local "
-            f"steps + {eval_batches} eval batches)) and no other kernel")
+            f"{'f32' if f32 else 'bf16'} flash_attention launches ({layers} "
+            f"layers x ({steps_run} local steps + {eval_batches} eval "
+            f"batches)) and no other kernel")
     final = run["records"][-1]
     if not math.isfinite(final.get("eval_loss", math.nan)):
         raise AssertionError(f"eval loss not finite: {final}")
+    if f32:
+        emit({"phase": "shakespeare_f32_path", "config": "shakespeare_fedavg",
+              "sets": list(sets), "rounds": rounds, "launches": counts,
+              "local_steps_run": steps_run, "eval_batches": eval_batches,
+              "train_loss": run["losses"], "eval_loss": final["eval_loss"],
+              "setup_s": round(setup_s, 3), "fit_s": round(run["fit_s"], 3)})
+        return counts
     numbers = path_numbers(exp, run, setup_s,
                            steady_round_s(exp, run.pop("state")))
     del exp
@@ -796,7 +875,7 @@ def femnist_path_phase(kernels) -> dict:
     untrained = exp.evaluate(state["params"])
     run = fit_and_check(exp, kernels, rounds, state)
     counts = run["counts"]
-    only_delta_apply(counts, rounds, "femnist_fedprox_500")
+    only_kernel(counts, "fused_delta_apply", rounds, "femnist_fedprox_500")
     records = run["records"]
     if any(r.get("algorithm") != "fedprox" for r in records):
         raise AssertionError(f"algorithm 'fedprox' missing from {records}")
@@ -825,12 +904,12 @@ def femnist_path_phase(kernels) -> dict:
 
 
 def fedavg_1000_path_phase(kernels) -> dict:
-    rounds = 2
+    rounds = SHORT_ROUNDS
     sets = (f"server.num_rounds={rounds}", "server.fused_apply=true")
     exp, setup_s = make_experiment("cifar10_fedavg_1000", sets, "")
     run = fit_and_check(exp, kernels, rounds)
     counts = run["counts"]
-    only_delta_apply(counts, rounds, "cifar10_fedavg_1000")
+    only_kernel(counts, "fused_delta_apply", rounds, "cifar10_fedavg_1000")
     round_s = steady_round_s(exp, run["state"], rounds)
     emit({"phase": "fedavg_1000_path", "config": "cifar10_fedavg_1000",
           "clients": exp.fed.num_clients,
@@ -843,42 +922,41 @@ def fedavg_1000_path_phase(kernels) -> dict:
 
 
 def kernel_rows(delta, reduce, flash, counts_by_path) -> list:
-    """The five rows of the kernel table. ``launches`` is each branch's
-    count on the path that runs it; ``launches_by_path`` gives it on
-    every path."""
-    def launches(counts, name, momentum):
-        c = counts[name]
-        return (c["momentum_launches"] if momentum
-                else c["launches"] - c["momentum_launches"])
-
-    def row(name, source, replaces, timing, fn_name, momentum, path):
+    """The six rows of the kernel table, one a branch. ``launches`` is
+    each branch's count on the path that runs it; ``launches_by_path``
+    gives it on every path."""
+    def row(name, source, replaces, timing, fn_name, branch, path):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
-        by_path = {p: launches(c, fn_name, momentum)
+        counter = BRANCH_COUNTS[fn_name]
+        by_path = {p: (c[fn_name][counter] if branch
+                       else c[fn_name]["launches"] - c[fn_name][counter])
                    for p, c in counts_by_path.items()}
         out = {"name": name, "route": "cuda", "source": CSRC + source,
-               "replaces": replaces,
-               "launches": (by_path[path] if path
-                            else sum(by_path.values())),
+               "replaces": replaces, "launches": by_path[path],
                "launches_by_path": by_path}
         out.update({k: timing[k] for k in keys})
         if "library_call" in timing:
             out["library_call"] = timing["library_call"]
         return out
 
+    flash_src = f"{PALLAS_ATTENTION}:141"
     return [
         row("fused_delta_apply", "server_apply.cu", f"{PALLAS}:222",
             delta[False], "fused_delta_apply", False, "cifar10_fedavg_100"),
         row("fused_delta_apply (momentum)", "server_apply.cu",
-            f"{PALLAS}:209", delta[True], "fused_delta_apply", True, None),
+            f"{PALLAS}:209", delta[True], "fused_delta_apply", True,
+            f"cifar10_fedavg_100 ({FEDAVGM})"),
         row("fused_reduce_apply (momentum)", "reduce_apply.cu",
-            f"{PALLAS}:262", reduce[True], "fused_reduce_apply", True, None),
+            f"{PALLAS}:262", reduce[True], "fused_reduce_apply", True,
+            f"cifar10_krum_byzantine ({FEDAVGM})"),
         row("fused_reduce_apply", "reduce_apply.cu", f"{PALLAS}:275",
             reduce[False], "fused_reduce_apply", False,
             "cifar10_krum_byzantine"),
-        row("flash_attention", "flash_attention.cu",
-            f"{PALLAS_ATTENTION}:141", flash, "flash_attention", False,
-            "shakespeare_fedavg"),
+        row("flash_attention (bf16)", "flash_attention.cu", flash_src,
+            flash["bf16"], "flash_attention", False, "shakespeare_fedavg"),
+        row("flash_attention (f32)", "flash_attention.cu", flash_src,
+            flash["f32"], "flash_attention", True, SHAKESPEARE_F32),
     ]
 
 
@@ -919,7 +997,9 @@ def main() -> int:
             "cifar10_fedavg_100": fedavg_path_phase(kernels),
             "cifar10_krum_byzantine": krum_path_phase(kernels, reduce_apply,
                                                       server_apply),
+            **fedavgm_path_phase(kernels, reduce_apply, server_apply),
             "shakespeare_fedavg": shakespeare_path_phase(kernels),
+            SHAKESPEARE_F32: shakespeare_path_phase(kernels, f32=True),
             "femnist_fedprox_500": femnist_path_phase(kernels),
             "cifar10_fedavg_1000": fedavg_1000_path_phase(kernels),
         }

@@ -13,7 +13,8 @@
 //
 // Two kernels, one per input dtype.
 //
-// bf16 (local training on the path): tensor cores for both products.
+// bf16 (local training and eval on the path): tensor cores for both
+// products.
 // What bounds it on this card. At the path's shape (BERT-tiny: BH = 32,
 // T = 80, hd = 64, causal) one launch reads q, k, v and writes o:
 // 4 * 32 * 80 * 64 * 2 B = 1.3 MB, 0.4 us at 3.35 TB/s, and does
@@ -66,14 +67,51 @@
 // e^(m_w - M) / max(L, 1e-30), one division a row, where the reference
 // divides acc by max(l, 1e-30): the two differ by f32 rounding only.
 //
-// f32 (eval on the server's f32 params): the SIMT kernel of the first
-// port, unchanged. Every block owns one (b*h, 16-row query tile); a loop
-// over 32-key tiles staged in shared memory as f32 (k rows padded by one
-// float so lane j reads row j without bank conflicts) takes the place of
-// the TPU's k/v loop. Each of the 4 warps owns 4 query rows and runs them
-// through every step together; for a row, lane j computes the score of
-// key j of the tile, the warp reduces the tile's max and sum with
-// shuffles, and each lane keeps output dims lane, lane+32, ... of acc.
+// f32 (any model run at f32 compute, as shakespeare_fedavg with
+// run.compute_dtype=float32): tensor cores for both products too, at
+// f32 accuracy, on the bf16 kernel's skeleton (16-row query tiles, a
+// tile's 16-key chunks split over the kSplits warps of its block and
+// merged with one division a row, 16-byte cp.async double buffers, the
+// online softmax on the accumulator fragments, the causal stop). What
+// bounds it on this card. At the path's shape (BERT-tiny,
+// [32, 80, 64] causal) it moves 2.62 MB, 0.78 us at 3.35 TB/s, and
+// latency bounds it, as the bf16 kernel. At ViT-B/16's eval shape
+// ([768, 197, 64], non-causal) it moves 154.9 MB (46.2 us) and does 7.63
+// GFLOP: 114 us at the 67 TFLOP/s of the f32 SIMT cores, so a SIMT
+// kernel cannot reach half its bound there. Here:
+//   - both products run on mma.sync.m16n8k8 tf32 (f32 accumulators)
+//     with the 3xTF32 split: each operand x is hi = x rounded to tf32
+//     plus lo = (x - hi) rounded the same way (to nearest, ties away,
+//     as cvt.rna, but in two integer operations, which ran faster than
+//     the conversion instruction), and a product is hi hi + hi lo +
+//     lo hi, which drops terms of about 2^-22 |x y| (one tf32 product
+//     alone would be off by 2^-11, past the 2e-5 gate);
+//   - the tensor cores truncate as they accumulate, so each k-step's
+//     hi hi term of q k^T is summed in a zeroed accumulator and added in
+//     f32: a running sum there loses bits against the whole score at
+//     every step, which shows at peaked softmaxes;
+//   - q is scaled in f32, split once and held as A fragments; k's and
+//     v's hi and lo parts are made from shared memory as each chunk is
+//     used; p is split into tf32 high and low parts, as the bf16 kernel
+//     splits it into bf16 ones;
+//   - the k-order of each product is chosen so that every operand is
+//     one plain shared load (ldmatrix moves 16-bit elements, and its
+//     .trans cannot give v's tf32 B operand): k by float2 from rows
+//     HD + 8 floats apart, v by scalar loads from rows HD + 4 floats
+//     apart, both free of bank conflicts, and p from the C fragment of
+//     q k^T to the A fragment of p v in place (see the kernel);
+//   - chunks whose keys are all kept skip the mask.
+// Measured (tools/flash_f32_compare.py on an H100 80GB HBM3 at 700 W;
+// the designs it compared are in PERF.md): the zeroed hi hi accumulator
+// brought the largest error against the exact answer, at q and k
+// scaled x4, from 0.76 of the gate to 0.35. mma.sync tf32 runs at about
+// 180 TFLOP/s here, not the 495 of wgmma, so the three products alone
+// take about 140 us at ViT's shape, against 260.6 us for the kernel and
+// 46.2 us for its bound: a third of the bound is the most this
+// instruction allows, and half would take wgmma. A 64-row block whose
+// 4 warps share each k/v chunk (a quarter of the L2 reads) took 255.8
+// us against 260.7 there and 8.67 against 7.04 us at the path's shape;
+// it was not kept.
 //
 // Both kernels mask the ragged edge themselves: keys at or past T are
 // masked and query rows past T are not written, so nothing is padded in
@@ -92,137 +130,6 @@ namespace {
 
 constexpr float kNegBig = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
-
-// ---------------------------------------------------------------------
-// f32: SIMT
-
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 4;
-constexpr int kBlockQ = kWarps * kRowsPerWarp;  // query rows per block
-constexpr int kBlockKV = 32;                    // keys per tile, one a lane
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
-  }
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    x += __shfl_xor_sync(kFull, x, off);
-  }
-  return x;
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_f32_kernel(const float* __restrict__ q,
-                           const float* __restrict__ k,
-                           const float* __restrict__ v, float* __restrict__ o,
-                           int t, int n_qtiles, int causal, float scale) {
-  constexpr int kDimsPerLane = (HD + 31) / 32;
-  __shared__ float q_s[kBlockQ][HD];
-  __shared__ float k_s[kBlockKV][HD + 1];
-  __shared__ float v_s[kBlockKV][HD];
-
-  const long long bh = blockIdx.x / n_qtiles;
-  const int q0 = (blockIdx.x % n_qtiles) * kBlockQ;
-  const long long base = bh * t * HD;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-
-  // the query tile, scaled in f32; rows past t are zero and never written
-  for (int i = threadIdx.x; i < kBlockQ * HD; i += kThreads) {
-    const int r = i / HD, d = i % HD;
-    q_s[r][d] = q0 + r < t ? q[base + (long long)(q0 + r) * HD + d] * scale
-                           : 0.f;
-  }
-
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kDimsPerLane];
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    m[rr] = kNegBig;
-    l[rr] = 0.f;
-#pragma unroll
-    for (int i = 0; i < kDimsPerLane; ++i) acc[rr][i] = 0.f;
-  }
-
-  // causal: no query of this tile sees a key past its last row
-  const int kv_end = causal ? min(t, q0 + kBlockQ) : t;
-  for (int k0 = 0; k0 < kv_end; k0 += kBlockKV) {
-    __syncthreads();  // the previous tile is consumed, q_s is written
-    for (int i = threadIdx.x; i < kBlockKV * HD; i += kThreads) {
-      const int r = i / HD, d = i % HD;
-      const bool in = k0 + r < t;
-      const long long g = base + (long long)(k0 + r) * HD + d;
-      k_s[r][d] = in ? k[g] : 0.f;
-      v_s[r][d] = in ? v[g] : 0.f;
-    }
-    __syncthreads();
-    // the warp's rows go through each step together: every k and v
-    // element read from shared memory serves all of them, and their
-    // chains of FMAs are independent of one another
-    const int key = k0 + lane;
-    const int r0 = warp * kRowsPerWarp;
-    float s[kRowsPerWarp];
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) s[rr] = 0.f;
-#pragma unroll 16
-    for (int d = 0; d < HD; ++d) {
-      const float kd = k_s[lane][d];
-#pragma unroll
-      for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-        s[rr] = fmaf(q_s[r0 + rr][d], kd, s[rr]);
-      }
-    }
-    float p[kRowsPerWarp];
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const bool keep = key < t && (!causal || key <= q0 + r0 + rr);
-      const float sv = keep ? s[rr] : kNegBig;
-      const float m_new = fmaxf(m[rr], warp_max(sv));
-      const float corr = expf(m[rr] - m_new);
-      p[rr] = keep ? expf(sv - m_new) : 0.f;
-      l[rr] = l[rr] * corr + warp_sum(p[rr]);
-      m[rr] = m_new;
-#pragma unroll
-      for (int i = 0; i < kDimsPerLane; ++i) acc[rr][i] *= corr;
-    }
-#pragma unroll 4
-    for (int j = 0; j < kBlockKV; ++j) {
-      float vj[kDimsPerLane];
-#pragma unroll
-      for (int i = 0; i < kDimsPerLane; ++i) {
-        const int d = lane + 32 * i;
-        vj[i] = d < HD ? v_s[j][d] : 0.f;
-      }
-#pragma unroll
-      for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-        const float pj = __shfl_sync(kFull, p[rr], j);
-#pragma unroll
-        for (int i = 0; i < kDimsPerLane; ++i) {
-          acc[rr][i] = fmaf(pj, vj[i], acc[rr][i]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int row = q0 + warp * kRowsPerWarp + rr;
-    if (row >= t) continue;
-    const float denom = fmaxf(l[rr], 1e-30f);
-#pragma unroll
-    for (int i = 0; i < kDimsPerLane; ++i) {
-      const int d = lane + 32 * i;
-      if (d < HD) o[base + (long long)row * HD + d] = acc[rr][i] / denom;
-    }
-  }
-}
 
 // ---------------------------------------------------------------------
 // bf16: mma.sync tensor cores
@@ -498,79 +405,320 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-int launch_f32(const void* q, const void* k, const void* v, void* o,
-               long long bh, int t, int hd, int causal, float scale,
-               cudaStream_t s) {
-  const int n_qtiles = (t + kBlockQ - 1) / kBlockQ;
+// ---------------------------------------------------------------------
+// f32: mma.sync tf32 tensor cores, 3xTF32
+
+// shared bytes a warp needs: two buffers of one chunk's k rows (HD + 8
+// floats apart) and v rows (HD + 4 floats apart)
+__host__ __device__ constexpr int kv_f32_bytes_per_warp(int hd) {
+  return 2 * kTileQ * ((hd + 8) + (hd + 4)) * 4;
+}
+
+// x rounded to tf32 (10 mantissa bits, to nearest, ties away from zero),
+// as the bits of an f32: what cvt.rna.tf32.f32 gives for finite x, in
+// two integer operations instead of a conversion instruction
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo to about 2^-22 |x|: hi is x rounded to tf32, lo the rest
+// rounded the same way
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// c += a b: a 16x8 tf32 (row), b 8x8 tf32 (col), c 16x8 f32
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Fragment layout of m16n8k8 tf32 (lane = 4 g + tq): A holds rows g and
+// g + 8 at k-columns tq and tq + 4, B k-rows tq and tq + 4 at column g,
+// and C rows g and g + 8 at columns 2 tq and 2 tq + 1. A product sums
+// over k in any order, so each product orders k to suit its loads: in
+// q k^T, k-columns tq and tq + 4 of k-step ks are dims 8 ks + 2 tq and
+// 8 ks + 2 tq + 1 (one float2 of q and one of k); in p v, those of the
+// 8-key step h are keys 8 h + 2 tq and 8 h + 2 tq + 1, the two columns
+// of s the thread already holds, so p passes from the C fragment of
+// q k^T to the A fragment of p v without a shuffle.
+//
+// Blocks, chunks, the causal stop and the merge of the kSplits warps are
+// the bf16 kernel's.
+template <int HD>
+__global__ void __launch_bounds__(kSplits * 32)
+flash_attention_f32_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o,
+                           int t, int n_qtiles, int causal, float scale) {
+  constexpr int KS = HD / 8;    // k-steps of q k^T
+  constexpr int DN = HD / 8;    // 8-column n-tiles of the output
+  constexpr int LDK = HD + 8;   // k row stride (floats): a half-warp's
+                                // float2 loads hit 32 distinct banks
+  constexpr int LDV = HD + 4;   // v row stride: a warp's loads of rows
+                                // 2 tq (+ 1), column g, likewise
+  constexpr int VECS = HD / 4;  // 16-byte vectors per row
+  constexpr int BUF = kTileQ * (LDK + LDV);  // floats of one buffer
+  constexpr int RLD = HD + 8;   // row stride of the merge buffer
+  // per warp: two buffers of one chunk's k and v rows, and (after the
+  // loop, in the same bytes) the warp's scaled acc for the merge
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float m_s[kSplits][kTileQ], l_s[kSplits][kTileQ];
+
+  const long long bh = blockIdx.x / n_qtiles;
+  const int qtile = blockIdx.x % n_qtiles;
+  const int q0 = qtile * kTileQ;
+  const long long base = bh * t * HD;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  float* kv = reinterpret_cast<float*>(
+      smem + (size_t)warp * kv_f32_bytes_per_warp(HD));  // [buf][k | v]
+  // causal: no row of the tile sees a key past its last row
+  const int n_chunks = causal ? qtile + 1 : (t + 15) / 16;
+
+  // q scaled in f32, as A fragments in tf32 high and low parts, straight
+  // from device memory: rows past t are zero
+  uint32_t qh[KS][4], ql[KS][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + g + 8 * h;
+    const float* qr = q + base + (long long)min(row, t - 1) * HD + 2 * tq;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const float2 x = row < t
+                           ? *reinterpret_cast<const float2*>(qr + 8 * ks)
+                           : make_float2(0.f, 0.f);
+      split_tf32(__fmul_rn(x.x, scale), qh[ks][h], ql[ks][h]);
+      split_tf32(__fmul_rn(x.y, scale), qh[ks][2 + h], ql[ks][2 + h]);
+    }
+  }
+
+  float acc[DN][4];
+#pragma unroll
+  for (int dn = 0; dn < DN; ++dn) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
+  }
+  float m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f};
+
+  // chunk c's 16 k and v rows into buffer buf; rows at or past t are zero
+  auto load_chunk = [&](int buf, int c) {
+    float* kb = kv + buf * BUF;
+    float* vb = kb + kTileQ * LDK;
+#pragma unroll
+    for (int i = lane; i < kTileQ * VECS; i += 32) {
+      const int r = i / VECS, d = (i % VECS) * 4;
+      const int key = 16 * c + r;
+      const long long off = base + (long long)(key < t ? key : 0) * HD + d;
+      cp_async16(kb + r * LDK + d, k + off, key < t);
+      cp_async16(vb + r * LDV + d, v + off, key < t);
+    }
+    cp_async_commit();
+  };
+
+  // one 16-key chunk c from kb/vb, with keep(h, e) saying which scores
+  // of a thread's fragments are kept
+  auto chunk = [&](int c, const float* kb, const float* vb, auto keep) {
+    // s = q k^T on the chunk as hi hi + (lo hi + hi lo). The hi hi term
+    // of each k-step is summed in a zeroed accumulator and added in f32:
+    // the tensor cores truncate as they accumulate, so a running sum
+    // there would lose bits against the whole score at every step. The
+    // small terms run in chains of their own beside it.
+    float sb[2][4] = {}, s1[2][4] = {}, s2[2][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 kk = *reinterpret_cast<const float2*>(
+            kb + (8 * h + g) * LDK + 8 * ks + 2 * tq);
+        uint32_t kh0, kl0, kh1, kl1;
+        split_tf32(kk.x, kh0, kl0);
+        split_tf32(kk.y, kh1, kl1);
+        float part[4] = {};
+        mma_tf32(part, qh[ks], kh0, kh1);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sb[h][e] += part[e];
+        mma_tf32(s1[h], ql[ks], kh0, kh1);
+        mma_tf32(s2[h], qh[ks], kl0, kl1);
+      }
+    }
+    float s[2][4], mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[h][e] = keep(h, e) ? sb[h][e] + (s1[h][e] + s2[h][e]) : kNegBig;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[h][e]);
+      }
+    }
+    // the online softmax on the fragments: rows g and g + 8
+    float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = quad_max(mx[i]);
+      corr[i] = expf(m[i] - mx[i]);
+      m[i] = mx[i];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[h][e] = keep(h, e) ? expf(s[h][e] - m[e >> 1]) : 0.f;
+        sum[e >> 1] += s[h][e];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + quad_sum(sum[i]);
+    // acc = acc * corr + p v, p as the A operand in tf32 high and low
+    // parts: rows g, g + 8 at key 2 tq, then rows g, g + 8 at 2 tq + 1
+    uint32_t ph[2][4], pl[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      split_tf32(s[h][0], ph[h][0], pl[h][0]);
+      split_tf32(s[h][2], ph[h][1], pl[h][1]);
+      split_tf32(s[h][1], ph[h][2], pl[h][2]);
+      split_tf32(s[h][3], ph[h][3], pl[h][3]);
+    }
+#pragma unroll
+    for (int dn = 0; dn < DN; ++dn) {
+      float(&a)[4] = acc[dn];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[e] *= corr[e >> 1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* vr = vb + (8 * h + 2 * tq) * LDV + 8 * dn + g;
+        uint32_t vh0, vl0, vh1, vl1;
+        split_tf32(vr[0], vh0, vl0);
+        split_tf32(vr[LDV], vh1, vl1);
+        mma_tf32(a, pl[h], vh0, vh1);
+        mma_tf32(a, ph[h], vl0, vl1);
+        mma_tf32(a, ph[h], vh0, vh1);
+      }
+    }
+  };
+
+  if (warp < n_chunks) load_chunk(0, warp);
+  for (int c = warp, j = 0; c < n_chunks; c += kSplits, ++j) {
+    const int buf = j & 1;
+    if (c + kSplits < n_chunks) {
+      load_chunk(buf ^ 1, c + kSplits);  // under this chunk's products
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+    const float* kb = kv + buf * BUF;
+    const float* vb = kb + kTileQ * LDK;
+    // every key of the chunk real, and (causal) at or before every row
+    if (16 * c + 16 <= t && (!causal || 16 * c + 15 <= q0)) {
+      chunk(c, kb, vb, [](int, int) { return true; });
+    } else {
+      chunk(c, kb, vb, [&](int h, int e) {
+        const int key = 16 * c + 8 * h + 2 * tq + (e & 1);
+        const int row = q0 + g + 8 * (e >> 1);
+        return key < t && (!causal || key <= row);
+      });
+    }
+    __syncwarp();  // buffer buf is free for this warp's chunk after next
+  }
+
+  // merge the warps' partial softmaxes
+  if (tq == 0) {
+    m_s[warp][g] = m[0];
+    m_s[warp][g + 8] = m[1];
+    l_s[warp][g] = l[0];
+    l_s[warp][g + 8] = l[1];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = g + 8 * i;
+    float mm = kNegBig, ll = 0.f;
+#pragma unroll
+    for (int w = 0; w < kSplits; ++w) mm = fmaxf(mm, m_s[w][r]);
+#pragma unroll
+    for (int w = 0; w < kSplits; ++w) ll += l_s[w][r] * expf(m_s[w][r] - mm);
+    const float alpha = expf(m[i] - mm) / fmaxf(ll, 1e-30f);
+#pragma unroll
+    for (int dn = 0; dn < DN; ++dn) {
+      *reinterpret_cast<float2*>(&kv[r * RLD + 8 * dn + 2 * tq]) =
+          make_float2(acc[dn][2 * i] * alpha, acc[dn][2 * i + 1] * alpha);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kTileQ * VECS; i += kSplits * 32) {
+    const int r = i / VECS, d = 4 * (i % VECS);
+    if (q0 + r >= t) continue;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < kSplits; ++w) {
+      const float4 part = *reinterpret_cast<const float4*>(
+          smem + (size_t)w * kv_f32_bytes_per_warp(HD) +
+          ((size_t)r * RLD + d) * sizeof(float));
+      x.x += part.x;
+      x.y += part.y;
+      x.z += part.z;
+      x.w += part.w;
+    }
+    *reinterpret_cast<float4*>(o + base + (long long)(q0 + r) * HD + d) = x;
+  }
+}
+
+// one launch of a (b*h, 16-row query tile) grid of kSplits-warp blocks
+// with smem bytes of dynamic shared memory
+template <typename T>
+int launch_kernel(void (*kernel)(const T*, const T*, const T*, T*, int, int,
+                                 int, float),
+                  int smem, const void* q, const void* k, const void* v,
+                  void* o, long long bh, int t, int causal, float scale,
+                  cudaStream_t s) {
+  const int n_qtiles = (t + kTileQ - 1) / kTileQ;
   const long long blocks = bh * n_qtiles;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  const float* qp = static_cast<const float*>(q);
-  const float* kp = static_cast<const float*>(k);
-  const float* vp = static_cast<const float*>(v);
-  float* op = static_cast<float*>(o);
-  const int nb = (int)blocks;
-  switch (hd) {
-    case 16:
-      flash_attention_f32_kernel<16><<<nb, kThreads, 0, s>>>(
-          qp, kp, vp, op, t, n_qtiles, causal, scale);
-      break;
-    case 32:
-      flash_attention_f32_kernel<32><<<nb, kThreads, 0, s>>>(
-          qp, kp, vp, op, t, n_qtiles, causal, scale);
-      break;
-    case 64:
-      flash_attention_f32_kernel<64><<<nb, kThreads, 0, s>>>(
-          qp, kp, vp, op, t, n_qtiles, causal, scale);
-      break;
-    case 128:
-      flash_attention_f32_kernel<128><<<nb, kThreads, 0, s>>>(
-          qp, kp, vp, op, t, n_qtiles, causal, scale);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
   }
+  kernel<<<(int)blocks, kSplits * 32, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), t, n_qtiles, causal,
+      scale);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
-int launch_bf16_hd(const void* q, const void* k, const void* v, void* o,
-                   int blocks, int t, int n_qtiles, int causal, float scale,
-                   cudaStream_t s) {
-  constexpr int smem = kSplits * kv_bytes_per_warp(HD);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_bf16_kernel<HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
+int launch_hd(int dtype, const void* q, const void* k, const void* v,
+              void* o, long long bh, int t, int causal, float scale,
+              cudaStream_t s) {
+  if (dtype == 0) {
+    return launch_kernel<float>(flash_attention_f32_kernel<HD>,
+                                kSplits * kv_f32_bytes_per_warp(HD), q, k, v,
+                                o, bh, t, causal, scale, s);
   }
-  flash_attention_bf16_kernel<HD><<<blocks, kSplits * 32, smem, s>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      t, n_qtiles, causal, scale);
-  return (int)cudaGetLastError();
+  return launch_kernel<__nv_bfloat16>(flash_attention_bf16_kernel<HD>,
+                                      kSplits * kv_bytes_per_warp(HD), q, k,
+                                      v, o, bh, t, causal, scale, s);
 }
 
-int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                long long bh, int t, int hd, int causal, float scale,
-                cudaStream_t s) {
-  const int n_qtiles = (t + kTileQ - 1) / kTileQ;
-  const long long blocks = bh * n_qtiles;
-  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  const int nb = (int)blocks;
+int launch(const void* q, const void* k, const void* v, void* o,
+           long long bh, int t, int hd, int dtype, int causal, float scale,
+           cudaStream_t s) {
   switch (hd) {
     case 16:
-      return launch_bf16_hd<16>(q, k, v, o, nb, t, n_qtiles, causal, scale,
-                                s);
+      return launch_hd<16>(dtype, q, k, v, o, bh, t, causal, scale, s);
     case 32:
-      return launch_bf16_hd<32>(q, k, v, o, nb, t, n_qtiles, causal, scale,
-                                s);
+      return launch_hd<32>(dtype, q, k, v, o, bh, t, causal, scale, s);
     case 64:
-      return launch_bf16_hd<64>(q, k, v, o, nb, t, n_qtiles, causal, scale,
-                                s);
+      return launch_hd<64>(dtype, q, k, v, o, bh, t, causal, scale, s);
     case 128:
-      return launch_bf16_hd<128>(q, k, v, o, nb, t, n_qtiles, causal, scale,
-                                 s);
+      return launch_hd<128>(dtype, q, k, v, o, bh, t, causal, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -581,20 +729,18 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // q, k, v, o: device pointers to contiguous [bh, t, hd] arrays of one
-// dtype (0 = f32, 1 = bf16; bf16 pointers 16-byte aligned); hd is 16,
-// 32, 64 or 128. scale is hd^-0.5 rounded to f32. stream: a
-// cudaStream_t. Returns a cudaError_t.
+// dtype (0 = f32, 1 = bf16), 16-byte aligned; hd is 16, 32, 64 or 128.
+// scale is hd^-0.5 rounded to f32. stream: a cudaStream_t. Returns a
+// cudaError_t.
 int colearn_flash_attention(const void* q, const void* k, const void* v,
                             void* o, long long bh, int t, int hd, int dtype,
                             int causal, float scale, void* stream) {
   cudaGetLastError();  // clear a stale error so the return is this launch's
-  if (bh <= 0 || t <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_f32(q, k, v, o, bh, t, hd, causal, scale, s);
-  if (dtype == 1) {
-    return launch_bf16(q, k, v, o, bh, t, hd, causal, scale, s);
+  if (bh <= 0 || t <= 0 || (dtype != 0 && dtype != 1)) {
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaErrorInvalidValue;
+  return launch(q, k, v, o, bh, t, hd, dtype, causal, scale,
+                static_cast<cudaStream_t>(stream));
 }
 
 const char* colearn_cuda_error_string(int code) {

@@ -11,12 +11,14 @@ accumulators, scores of masked keys at −1e30, and the output
 
 - **Forward.** The heads are split into ``[B·H, T, hd]``. On a CUDA
   tensor the wrapper launches ``csrc/flash_attention.cu`` (f32 or bf16,
-  hd ∈ {16, 32, 64, 128}, any T, causal or not; bf16 on the tensor
-  cores, which read 16-byte-aligned q, k, v) or raises; only a CPU
-  tensor takes the plain version (:func:`attention_reference`), which
+  hd ∈ {16, 32, 64, 128}, any T, causal or not; both on the tensor
+  cores, f32 through the 3xTF32 split, reading 16-byte-aligned q, k, v)
+  or raises; only a CPU tensor takes the plain version
+  (:func:`attention_reference`), which
   runs ``ops/ring_attention.py``'s online-softmax recurrence over the TPU
   kernel's k/v tiles in torch ops.
-  ``flash_attention.launches`` counts the kernel's launches.
+  ``flash_attention.launches`` counts the kernel's launches, and
+  ``flash_attention.f32_launches`` those of its f32 branch.
 - **Backward.** The TPU kernel has no backward kernel: the reference
   recomputes the gradient through the XLA blockwise recurrence
   (``_flash_bwd``). The port does the same in plain torch through
@@ -106,10 +108,9 @@ def _launch(q, k, v, causal: bool):
         raise ValueError("flash_attention kernel needs contiguous q, k, v")
     if bh == 0 or t == 0:
         raise ValueError(f"empty attention input {tuple(q.shape)}")
-    if q.dtype == torch.bfloat16 and any(
-            x.data_ptr() % 16 for x in (q, k, v)):
-        raise ValueError("flash_attention's bf16 kernel needs 16-byte-"
-                         "aligned q, k, v")
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("flash_attention kernel needs 16-byte-aligned q, "
+                         "k, v")
     out = torch.empty_like(q)
     lib = LIBRARY.load()
     with torch.cuda.device(q.device):
@@ -119,6 +120,8 @@ def _launch(q, k, v, causal: bool):
             hd, _DTYPE_CODES[q.dtype], int(causal), float(hd**-0.5), stream)
     LIBRARY.check(rc, "colearn_flash_attention")
     flash_attention.launches += 1
+    if q.dtype == torch.float32:
+        flash_attention.f32_launches += 1
     return out
 
 
@@ -193,5 +196,6 @@ def flash_attention(q, k, v, heads: int, causal: bool = True,
     return _FlashAttention.apply(q, k, v, heads, causal, block_q, block_kv)
 
 
-# kernel launches (CUDA tensors only)
+# kernel launches (CUDA tensors only), all and those of the f32 branch
 flash_attention.launches = 0
+flash_attention.f32_launches = 0
